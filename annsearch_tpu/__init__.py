@@ -1,10 +1,11 @@
-"""annsearch_tpu — TPU-native approximate nearest-neighbour search.
+"""annsearch_tpu — approximate nearest-neighbour search in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capability surface of
 ``GregorLueg/ann-search-rs`` (pure-Rust ANN library): flat/IVF/tree/LSH/graph
 indexes, quantised (bf16/sq8/pq/opq) and binary (simhash/pca/sign/RaBitQ)
-variants, under squared-euclidean and cosine distance — redesigned for the
-MXU/VMEM/ICI rather than translated from SIMD+rayon.
+variants, under squared-euclidean and cosine distance — redesigned as
+batched matmul and top-k programs for an accelerator rather than
+translated from SIMD+rayon.
 
 Layout:
   * ``ops``      — distance matmuls, running top-k, quantised scan kernels

@@ -7,7 +7,7 @@ the array analogue of the reference's ``(Vec<Vec<usize>>, Option<Vec<Vec<T>>>)``
 
 Batch parallelism is implicit: instead of a rayon ``par_iter`` over query rows
 (lib.rs:84-121) the whole query matrix is streamed through jitted blocked
-kernels on the TPU.
+kernels on the accelerator.
 """
 
 from __future__ import annotations
@@ -511,7 +511,7 @@ def query_ivf_index_rabitq_self(
 
 # ----------------------------------------------------------------------------
 # Graph indexes (reference lib.rs:969-1093 CPU NNDescent; :2199-2400 GPU
-# NNDescent/CAGRA). On TPU there is one accelerated engine, so the *_gpu
+# NNDescent/CAGRA). Here there is one accelerated engine, so the *_gpu
 # names are aliases of the native implementation.
 # ----------------------------------------------------------------------------
 

@@ -4,7 +4,7 @@ Every index in the framework follows the reference's uniform shape
 (SURVEY §1: ``build`` / ``query`` / ``generate_knn`` / ``memory_usage_bytes``,
 e.g. ``src/cpu/exhaustive.rs``), plus ``save``/``load`` which the reference
 lacks (its only persistence is the mmap vector store,
-``src/binary/vec_store.rs``) — on TPU the index state is plain arrays, so
+``src/binary/vec_store.rs``) — here the index state is plain arrays, so
 persistence is nearly free.
 
 Conventions (matching the reference):
@@ -44,11 +44,11 @@ def rescore_f64_pool(
     """Host f64 rescore of a device-selected candidate pool.
 
     The reference's distance kernels are generic over f32/f64
-    (dist.rs:113-2263); the MXU has no f64 path, so f64 grade comes from a
-    device f32 HIGHEST pre-selection (pool ≥ 2k) + this host f64 rescore of
-    the pooled rows. ``x64`` is the raw f64 data in original row order;
-    ``pool [nq, kp]`` holds original ids. Returns ``(ids [nq, k],
-    dists [nq, k])`` ascending, distances computed fully in f64."""
+    (dist.rs:113-2263); the matrix units have no f64 path, so f64 grade comes
+    from a device f32 HIGHEST pre-selection (pool ≥ 2k) + this host f64 rescore
+    of the pooled rows. ``x64`` is the raw f64 data in original row order;
+    ``pool [nq, kp]`` holds original ids. Returns ``(ids [nq, k], dists [nq,
+    k])`` ascending, distances computed fully in f64."""
     if metric == Dist.COSINE:
         xn = x64 / np.maximum(
             np.linalg.norm(x64, axis=1, keepdims=True), 1e-30
@@ -77,9 +77,8 @@ def rescore_f64_pool(
 
 #: Same economics inversion as the build-side brute path
 #: (models/graph.BRUTE_BUILD_FLOP_BUDGET): below this nq·n·d MAC count one
-#: exact MXU scan answers the batch faster than any sublinear structure
-#: can walk it (measured: 15k queries × 150k × 32d exact in ~0.38 s e2e
-#: vs 2.4–38 s for the native kMkNN/graph/LSH query paths). Indexes that
+#: exact tensor-core scan answers the batch faster than any sublinear structure
+#: can walk it. Indexes that
 #: keep full-precision rows route small-regime queries through it; pass
 #: ``exact_fallback=False`` (or set ANNSEARCH_NO_EXACT_FALLBACK=1) to
 #: force the native algorithm.
@@ -163,10 +162,10 @@ class BaseIndex:
 
     # -- f64 rescore path -------------------------------------------------
     #
-    # Reference distance kernels are generic over f32/f64
-    # (dist.rs:113-2263); the MXU has no f64 path, so f64 grade comes from
-    # a widened device pre-selection + a host f64 rescore of the pool.
-    # Raw-row families opt in with three lines in __init__/query:
+    # Reference distance kernels are generic over f32/f64 (dist.rs:113-2263);
+    # the matrix units have no f64 path, so f64 grade comes from a widened
+    # device pre-selection + a host f64 rescore of the pool. Raw-row families
+    # opt in with three lines in __init__/query:
     #
     #     self._capture_f64(mat)                      # constructor
     #     r = self._f64_roundtrip(query_mat, k, ...)  # top of query()

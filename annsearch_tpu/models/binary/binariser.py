@@ -1,6 +1,6 @@
 """Binarisers: SimHash, PCA-hash, and sign-based vector→bits encoders.
 
-TPU-native rebuild of the reference ``Binariser``
+JAX rebuild of the reference ``Binariser``
 (``src/binary/binariser.rs:20-460``), three init modes:
 
   * ``simhash`` — orthogonalised Gaussian hyperplane projections

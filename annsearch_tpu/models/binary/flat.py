@@ -1,6 +1,6 @@
 """Flat binary index: Hamming scan + optional asymmetric / exact rerank.
 
-TPU-native rebuild of the reference ``ExhaustiveIndexBinary``
+JAX rebuild of the reference ``ExhaustiveIndexBinary``
 (``src/binary/exhaustive_binary.rs:24-589``): vectors are binarised (SimHash
 / PCA / sign), queries scan packed codes with the ±1-matmul Hamming kernel,
 and results can be refined in two tiers —
@@ -58,7 +58,7 @@ class ExhaustiveIndexBinary(BaseIndex):
         ``fast_scan``: cache the codes unpacked to ±1 once so Hamming /
         asymmetric scans are plain distance matmuls (the per-tile unpack
         is the scan's VPU bottleneck; ±1 operands are exact in one bf16
-        MXU pass). Costs 4 B/bit extra HBM; auto-off above 2 GB."""
+        tensor-core pass). Costs 4 B/bit extra HBM; auto-off above 2 GB."""
         self.fast_scan = bool(fast_scan)
         super().__init__(mat, metric)
         x = self.vectors  # normalised if cosine
@@ -125,8 +125,8 @@ class ExhaustiveIndexBinary(BaseIndex):
             and self._exact_fallback_ok(q.shape[0])
         ):
             # the exact-rerank tier's contract is exact-metric distances —
-            # below the brute budget one MXU scan over the stored rows is
-            # both faster and a strict quality upper bound
+            # below the brute budget one matmul scan over the stored rows
+            # is both faster and a strict quality upper bound
             return self._exact_query_small(q, k)
 
         fast = self._fast_scan_ok()

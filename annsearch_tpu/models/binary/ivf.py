@@ -1,6 +1,6 @@
 """IVF binary index: float-centroid routing + packed binary cells.
 
-TPU-native rebuild of the reference ``IvfIndexBinary``
+JAX rebuild of the reference ``IvfIndexBinary``
 (``src/binary/ivf_binary.rs:22-927``): k-means on the float vectors routes
 queries to cells, cells hold packed codes, and the three query tiers —
 Hamming / asymmetric / exact-rerank — run on the segmented cluster-major
@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ...ops.binary import unpack_pm1
-from ...ops.ivf_scan_pallas import fused_ivf_scan, fused_eligible, repack_blocks
+from ...ops.ivf_scan_pallas import fused_eligible, fused_ivf_scan
 from ...ops.probe_device import build_probe_lists_device, device_probe_shapes
 from ...ops.rerank import rerank_exact, rerank_from_store
 from ...utils.dist import Dist
@@ -33,14 +33,13 @@ __all__ = ["IvfIndexBinary"]
     jax.jit,
     static_argnames=(
         "nprobe_seg", "nseg", "maxq", "R", "k", "route_metric", "kb",
-        "interpret",
     ),
 )
 def _fused_hamming_e2e(
-    q, q_pm, route_cents, blocks, sn_blocks, seg_offsets, seg_counts,
-    seg_cents, *, nprobe_seg, nseg, maxq, R, k, route_metric, kb, interpret,
+    q, q_pm, route_cents, pm, sn, seg_offsets, seg_counts,
+    seg_cents, *, nprobe_seg, nseg, maxq, R, k, route_metric, kb,
 ):
-    """Route (index metric) → invert → fused bf16 scan over ±1 cell blocks.
+    """Route (index metric) → invert → fused bf16 scan over ±1 cell rows.
 
     ±1 operands are exact in one bf16 pass and ``l2 = 2·nbits − 2·dot =
     4·hamming`` exactly, so the hamming tier rides the same fused kernel as
@@ -51,9 +50,9 @@ def _fused_hamming_e2e(
         probes.astype(jnp.int32), nseg, maxq, R
     )
     return fused_ivf_scan(
-        q_pm, cluster_ids, lists, gmap, blocks, sn_blocks,
+        q_pm, cluster_ids, lists, gmap, pm, sn,
         seg_offsets, seg_counts, seg_cents, k, Dist.EUCLIDEAN, "bf16",
-        None, kb, interpret=interpret,
+        None, kb,
     )
 
 
@@ -231,23 +230,22 @@ class IvfIndexBinary(IvfBase):
             # BELOW flat (measured −0.17 at 50k×256d nl158). Large rerank
             # pools take the exact XLA cell scan instead.
             and k_scan <= 128
-            and int(self.storage.shape[0]) < (1 << 24)
             and self.n * self.n_bits * 2 <= (2 << 30)
             and fused_eligible("bf16", self.seg_size, self.n_bits, k_scan)
         )
 
-    def _pm_blocks(self):
-        """Cell blocks unpacked to ±1 bf16 (cached; ‖row‖² = n_bits)."""
-        cached = getattr(self, "_pm_blocks_cache", None)
+    def _pm_rows(self):
+        """Storage unpacked to ±1 bf16 rows (cached; ‖row‖² = n_bits)."""
+        cached = getattr(self, "_pm_rows_cache", None)
         if cached is None:
             pm = unpack_pm1(self.storage, self.n_bits)
             sn = jnp.full((pm.shape[0],), float(self.n_bits), jnp.float32)
-            cached = repack_blocks(pm, sn, self.seg_offsets, self.seg_size)
-            self._pm_blocks_cache = cached
+            cached = (pm, sn)
+            self._pm_rows_cache = cached
         return cached
 
     def _fused_hamming(self, q, k_scan, nprobe):
-        """Single-dispatch hamming query over ±1 cell blocks. Returns
+        """Single-dispatch hamming query over ±1 cell rows. Returns
         (l2 dists [nq,k] = 4·hamming, sorted-storage positions)."""
         nq = q.shape[0]
         nseg = int(self.seg_offsets.shape[0])
@@ -255,7 +253,7 @@ class IvfIndexBinary(IvfBase):
             nseg, max(nprobe, -(-nprobe * nseg) // max(self.nlist, 1))
         )
         maxq, R = device_probe_shapes(nq, nprobe_seg, nseg, 1)
-        blocks, sn_blocks = self._pm_blocks()
+        pm, sn = self._pm_rows()
         kb = min(128, max(8, 1 << (min(k_scan, 128) - 1).bit_length()))
         q_pm = unpack_pm1(
             self.binariser.encode(q), self.n_bits
@@ -264,11 +262,10 @@ class IvfIndexBinary(IvfBase):
         # scoring width (±1 lanes), so pass zeros in that space
         zero_cents = jnp.zeros((nseg, q_pm.shape[1]), jnp.float32)
         return _fused_hamming_e2e(
-            q, q_pm, self.seg_centroids, blocks, sn_blocks,
+            q, q_pm, self.seg_centroids, pm, sn,
             self.seg_offsets, self.seg_counts, zero_cents,
             nprobe_seg=nprobe_seg, nseg=nseg, maxq=maxq, R=R, k=k_scan,
             route_metric=self.metric, kb=kb,
-            interpret=jax.default_backend() != "tpu",
         )
 
     def generate_knn(self, k: int, nprobe: int | None = None, **kw):

@@ -1,6 +1,6 @@
 """RaBitQ indexes: 1-bit residual quantisation with an unbiased estimator.
 
-TPU-native rebuild of the reference's RaBitQ layer
+JAX rebuild of the reference's RaBitQ layer
 (``src/binary/rabitq.rs`` + estimator ``dist_binary.rs:466-588``):
 
   * encoder: random orthogonal rotation (QR of a Gaussian, rabitq.rs:240-261);
@@ -10,10 +10,10 @@ TPU-native rebuild of the reference's RaBitQ layer
   * estimator: ``⟨q,v⟩̂ = ⟨R·uq, sign⟩ / ‖R·u‖₁`` clamped to [−1,1], then
     ``d̂ = sqrt(‖v−c‖² + ‖q−c‖² − 2‖v−c‖‖q−c‖·⟨q,v⟩̂)`` (dist_binary.rs:564-587
     — the reference returns the *non-squared* estimate; matched here);
-  * TPU deviation: the reference int4-quantises the rotated query residual to
-    enable a u8 SIMD dot (rabitq.rs:140-207, dist_binary.rs:332-463). The MXU
-    needs no such trick — the sign dot is an exact ±1 matmul, giving the same
-    estimator with strictly less quantisation error.
+  * Deviation: the reference int4-quantises the rotated query residual to
+    enable a u8 SIMD dot (rabitq.rs:140-207, dist_binary.rs:332-463). A matrix
+    unit needs no such trick — the sign dot is an exact ±1 matmul, giving
+    the same estimator with strictly less quantisation error.
 
 Two indexes (reference exhaustive_rabitq.rs / ivf_rabitq.rs):
   * :class:`ExhaustiveIndexRaBitQ` — "exhaustive" in name but internally
@@ -35,7 +35,7 @@ import numpy as np
 import functools
 
 from ...ops.binary import pack_bits, unpack_pm1
-from ...ops.ivf_scan_pallas import fused_eligible, fused_ivf_scan, repack_blocks
+from ...ops.ivf_scan_pallas import fused_eligible, fused_ivf_scan
 from ...ops.probe_device import build_probe_lists_device, device_probe_shapes
 from ...ops.rerank import rerank_exact, rerank_from_store
 from ...utils.dist import Dist
@@ -67,8 +67,9 @@ class RaBitQEncoder:
         r = x - owner_centroids
         v_dist = jnp.sqrt(jnp.sum(r * r, axis=-1))
         u = r / jnp.maximum(v_dist, 1e-12)[:, None]
-        # HIGHEST: sign bits + L1 correction come from this product; TPU
-        # DEFAULT (1 bf16 pass) flips near-zero signs and biases ‖R·u‖₁
+        # HIGHEST: sign bits + L1 correction come from this product; a
+        # reduced-precision DEFAULT pass flips near-zero signs and biases
+        # ‖R·u‖₁
         ru = jnp.matmul(
             u, self.rotation.T, precision=jax.lax.Precision.HIGHEST
         )
@@ -96,13 +97,12 @@ class RaBitQEncoder:
     jax.jit,
     static_argnames=(
         "nprobe_seg", "nseg", "maxq", "R", "k", "route_metric", "kb",
-        "interpret",
     ),
 )
 def _fused_rabitq_e2e(
-    q, q_rot, route_cents, blocks, sn_blocks, seg_offsets, seg_counts,
+    q, q_rot, route_cents, x_scaled, sn2, seg_offsets, seg_counts,
     seg_cents_rot, ones_scales, *, nprobe_seg, nseg, maxq, R, k,
-    route_metric, kb, interpret,
+    route_metric, kb,
 ):
     """Route (index metric) → invert → fused estimator scan, one dispatch.
 
@@ -116,9 +116,9 @@ def _fused_rabitq_e2e(
         probes.astype(jnp.int32), nseg, maxq, R
     )
     return fused_ivf_scan(
-        q_rot, cluster_ids, lists, gmap, blocks, sn_blocks,
+        q_rot, cluster_ids, lists, gmap, x_scaled, sn2,
         seg_offsets, seg_counts, seg_cents_rot, k, Dist.EUCLIDEAN,
-        "i8dec_residual", ones_scales, kb, interpret=interpret,
+        "i8dec_residual", ones_scales, kb,
     )
 
 
@@ -270,17 +270,16 @@ class _RaBitQBase(IvfBase):
         nbits = self.encoder.n_words * 32
         return (
             self.fast_scan
-            and int(self.storage.shape[0]) < (1 << 24)
             and self.n * nbits * 2 <= (2 << 30)
             and fused_eligible(
                 "i8dec_residual", self.seg_size, nbits, min(k_scan, 128)
             )
         )
 
-    def _est_blocks(self):
-        """±1 rows scaled by sn/corr (bf16, cached) + sn² blocks — the
-        storage form that makes the estimator a stock residual-l2 scan."""
-        cached = getattr(self, "_est_blocks_cache", None)
+    def _est_rows(self):
+        """±1 rows scaled by sn/corr (bf16, cached) + sn² — the storage
+        form that makes the estimator a stock residual-l2 scan."""
+        cached = getattr(self, "_est_rows_cache", None)
         if cached is None:
             nbits = self.encoder.n_words * 32
             pm = unpack_pm1(self.storage, self.dim).astype(jnp.float32)
@@ -294,11 +293,8 @@ class _RaBitQBase(IvfBase):
                 0.0,
             )
             x_scaled = (pm * mult[:, None]).astype(jnp.bfloat16)
-            cached = repack_blocks(
-                x_scaled, self.store_sqnorms**2, self.seg_offsets,
-                self.seg_size,
-            )
-            self._est_blocks_cache = cached
+            cached = (x_scaled, self.store_sqnorms**2)
+            self._est_rows_cache = cached
         return cached
 
     def _fused_estimator(self, q, k_scan, nprobe):
@@ -308,17 +304,16 @@ class _RaBitQBase(IvfBase):
             nseg, max(nprobe, -(-nprobe * nseg) // max(self.nlist, 1))
         )
         maxq, R = device_probe_shapes(nq, nprobe_seg, nseg, 1)
-        blocks, sn_blocks = self._est_blocks()
+        x_scaled, sn2 = self._est_rows()
         kb = min(128, max(8, 1 << (min(k_scan, 128) - 1).bit_length()))
         nbits = self.encoder.n_words * 32
         return _fused_rabitq_e2e(
-            q, self._encode_queries(q), self.seg_centroids, blocks,
-            sn_blocks, self.seg_offsets, self.seg_counts,
+            q, self._encode_queries(q), self.seg_centroids, x_scaled,
+            sn2, self.seg_offsets, self.seg_counts,
             self._scan_seg_centroids(),
             jnp.ones((nbits,), jnp.float32),
             nprobe_seg=nprobe_seg, nseg=nseg, maxq=maxq, R=R, k=k_scan,
             route_metric=self.metric, kb=kb,
-            interpret=jax.default_backend() != "tpu",
         )
 
     def _owner_j(self):

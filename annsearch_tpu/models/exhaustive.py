@@ -1,10 +1,10 @@
 """Exhaustive (flat / brute-force) index.
 
-TPU-native rebuild of the reference's ``ExhaustiveIndex``
+JAX rebuild of the reference's ``ExhaustiveIndex``
 (``src/cpu/exhaustive.rs:18-274`` — per-query linear scan with a bounded
 max-heap) and its GPU twin (``src/gpu/exhaustive_gpu.rs`` +
 ``dist_gpu.rs:533-705``): here the scan is a blocked distance matmul on the
-MXU with a running top-k carried across database tiles
+tensor-core with a running top-k carried across database tiles
 (:mod:`annsearch_tpu.ops.topk`). Build = put vectors on device; this index is
 also the ground-truth engine for recall validation.
 """
@@ -34,8 +34,8 @@ class ExhaustiveIndex(BaseIndex):
         precision=jax.lax.Precision.HIGHEST,
     ):
         # f64 inputs keep a host-side f64 copy: the reference's distance
-        # kernels are generic over f32/f64 (dist.rs:113-2263); the MXU has
-        # no f64 path, so f64 grade comes from a device f32 HIGHEST
+        # kernels are generic over f32/f64 (dist.rs:113-2263); the matrix
+        # units have no f64 path, so f64 grade comes from a device f32 HIGHEST
         # pre-selection (pool 2k) + a host f64 rescore of the pool.
         self._x64 = None
         if isinstance(mat, np.ndarray) and mat.dtype == np.float64:
@@ -52,9 +52,8 @@ class ExhaustiveIndex(BaseIndex):
         selector: str = "exact",
     ) -> tuple[np.ndarray, np.ndarray]:
         """``selector``: "exact" (default — ground-truth quality),
-        "approx" (per-tile approx_min_k), "bins" (selection-free running
-        bins, ~1e-5 tail loss) or "fused" (Pallas kernel — bins state in
-        VMEM, fastest on TPU, same tail loss as "bins")."""
+        "approx" (per-tile approx_min_k) or "bins" (selection-free running
+        bins, ~1e-5 tail loss)."""
         q64 = None
         if (
             self._x64 is not None

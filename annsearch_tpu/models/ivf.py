@@ -1,6 +1,6 @@
 """IVF (inverted-file) index.
 
-TPU-native rebuild of the reference's ``IvfIndex`` (``src/cpu/ivf.rs``) and
+JAX rebuild of the reference's ``IvfIndex`` (``src/cpu/ivf.rs``) and
 its GPU variant (``src/gpu/ivf_gpu.rs``): k-means coarse quantiser, vectors
 reordered cluster-contiguously (``optimise_memory_layout``, ivf.rs:407-444),
 query = route to top-nprobe centroids then scan those cells.
@@ -9,7 +9,7 @@ All irregular machinery lives in the shared :class:`IvfBase`
 (``models/ivf_base.py``): bounded-size cell segments instead of CSR, one
 routing matmul instead of per-query ``select_nth_unstable``, and the
 cluster-major scan engine (each cell read once per batch, dense
-[queries × cell] MXU matmuls) instead of per-query scans.
+[queries × cell] tensor-core matmuls) instead of per-query scans.
 
 Defaults match the reference: ``nlist = √n``, ``nprobe = √nlist``
 (ivf.rs:261), k-means trained on ≤ min(256·nlist, 250k) rows (ivf.rs:158).

@@ -1,13 +1,12 @@
 """k-means engine — the coarse-quantiser trainer behind IVF/kMkNN/PQ/RaBitQ.
 
-TPU-native rebuild of the reference's k-means layer
-(``src/utils/k_means_utils.rs``). The reference maintains four Lloyd variants
-(Hamerly+GEMM, Hamerly+SIMD, GEMM-cosine, plain parallel — :961-1645) because
-on CPU the triangle-inequality bookkeeping pays for itself. On the MXU it
-does not: a full GEMM assignment each iteration is the fast path (SURVEY §7),
-so there is exactly one Lloyd loop here — blocked distance matmul → argmin →
-``segment_sum`` update — jitted with ``lax.while_loop`` convergence on
-centroid shift.
+JAX rebuild of the reference's k-means layer (``src/utils/k_means_utils.rs``).
+The reference maintains four Lloyd variants (Hamerly+GEMM, Hamerly+SIMD,
+GEMM-cosine, plain parallel — :961-1645) because on CPU the triangle-inequality
+bookkeeping pays for itself. On matrix units it does not: a full GEMM
+assignment each iteration is the fast path (SURVEY §7), so there is exactly one
+Lloyd loop here — blocked distance matmul → argmin → ``segment_sum`` update —
+jitted with ``lax.while_loop`` convergence on centroid shift.
 
 Init strategies follow the reference's split (k_means_utils.rs:217-405):
 k-means++ -style D² seeding for small k (≤200), random row picks for large k.
@@ -295,7 +294,7 @@ def train_centroids_minibatch(
 
 # ---------------------------------------------------------------------------
 # padded cell layout (the reference's CSR, build_csr_layout :2012-2037,
-# re-shaped for TPU: fixed [nlist, cell_cap] member table + mask)
+# re-shaped for static shapes: fixed [nlist, cell_cap] member table + mask)
 # ---------------------------------------------------------------------------
 
 

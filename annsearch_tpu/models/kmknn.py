@@ -1,6 +1,6 @@
 """kMkNN index: EXACT search with k-means triangle-inequality pruning.
 
-TPU-native rebuild of the reference ``KmknnIndex`` (``src/cpu/kmknn.rs``).
+JAX rebuild of the reference ``KmknnIndex`` (``src/cpu/kmknn.rs``).
 The reference walks clusters per query in ascending centroid distance and
 early-breaks via the triangle bound (kmknn.rs:263-335); data-dependent
 early-exit doesn't batch, so the same guarantee is delivered in two fixed
@@ -235,7 +235,8 @@ class KmknnIndex(BaseIndex):
         q = self._prep_queries(query_mat)
         if exact_fallback and self._exact_fallback_ok(q.shape[0]):
             # identical output to the two-phase triangle-bound search (both
-            # are exact); the MXU scan is the faster path below the budget
+            # are exact); the matmul scan is the faster path below the
+            # budget
             ids, d = self._exact_query_small(q, kq)
         else:
             ids, d = self._query_prepped(q, kq, p0)

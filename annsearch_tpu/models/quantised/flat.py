@@ -1,6 +1,6 @@
 """Flat (exhaustive-scan) quantised indexes: bf16, SQ8, PQ, OPQ.
 
-TPU-native rebuild of the reference's quantised exhaustive indexes
+JAX rebuild of the reference's quantised exhaustive indexes
 (``src/quantised/exhaustive_bf16.rs`` / ``exhaustive_sq8.rs`` /
 ``exhaustive_pq.rs`` / ``exhaustive_opq.rs``): compressed storage + blocked
 quantised distance scans (``ops/quantised.py``) instead of per-row SIMD

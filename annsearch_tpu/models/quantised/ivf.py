@@ -1,6 +1,6 @@
 """IVF quantised indexes: bf16 / SQ8 / PQ (residual) / OPQ (residual+rotation).
 
-TPU-native rebuild of the reference's quantised IVF family
+JAX rebuild of the reference's quantised IVF family
 (``src/quantised/ivf_bf16.rs`` / ``ivf_sq8.rs`` / ``ivf_pq.rs`` /
 ``ivf_opq.rs``): float-centroid routing, cluster-contiguous compressed
 storage, cell scans in the quantised domain. Routing/segments/scan plumbing
@@ -87,7 +87,7 @@ class IvfPqIndex(IvfBase):
     path: the decoded residuals are requantised per-dim to int8 at build
     (error ≤ absmax/254 — far below the PQ error) and the scan becomes a
     pure int8→bf16 matmul with zero decode work. Same bytes per vector as
-    the u8 codes; the TPU analogue of FAISS's PQ fast-scan relayout."""
+    the u8 codes; the matmul analogue of FAISS's PQ fast-scan relayout."""
 
     mode = "pq_residual"
     _state_arrays = IvfBase._state_arrays + ("codebooks", "dec_scales")
@@ -97,9 +97,8 @@ class IvfPqIndex(IvfBase):
         super().__init__(mat, metric, nlist=nlist, m=m, **kw)
 
     #: rows per encode chunk — bounds the f32 transients (residuals /
-    #: decoded reconstructions) to ~256 MB at d=128 so 10M-row builds fit
-    #: next to the 5.1 GB database + int8 storage in 16 GB HBM (a full
-    #: [10M, 128] f32 residual tensor OOMed the v5e)
+    #: decoded reconstructions) to ~256 MB at d=128, so a 10M-row build
+    #: never holds a full [n, d] f32 residual tensor next to the database
     ENCODE_CHUNK = 1 << 19
 
     #: receive (x, order) instead of a materialised x_sorted — sorted rows

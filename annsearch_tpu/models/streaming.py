@@ -1,19 +1,19 @@
 """Bigger-than-HBM exact search: stream database chunks through the device.
 
-The reference's scale axis is host RAM — databases live in `faer` matrices
-(or the mmap vector store, vec_store.rs:16-204) and SIMD scans stream them
-through CPU caches. On TPU the analogue is HBM residency, which caps out
-(~16 GB/chip): this index keeps the database on the HOST (numpy array or
-the same raw ``.vec`` file format as :class:`MmapVectorStore`) and streams
-row chunks through the device, folding each chunk into a running top-k with
-the same merge used by the on-device tile scan (``ops/topk.merge_topk``).
+The reference's scale axis is host RAM — databases live in `faer` matrices (or
+the mmap vector store, vec_store.rs:16-204) and SIMD scans stream them through
+CPU caches. On an accelerator the analogue is device-memory residency, which
+caps out at the card's memory: this index keeps the database on the HOST (numpy
+array or the same raw ``.vec`` file format as :class:`MmapVectorStore`) and
+streams row chunks through the device, folding each chunk into a running top-k
+with the same merge used by the on-device tile scan (``ops/topk.merge_topk``).
 
 Per chunk the device work is one distance matmul + top-k; uploads overlap
 compute through JAX's async dispatch (the next ``device_put`` is issued
 while the previous chunk's matmul runs). Queries stay resident across the
 whole pass, so total PCIe traffic is ``n·d·4`` bytes per query batch —
-bandwidth-bound exactly like the reference's RAM scan, with the MXU doing
-the arithmetic.
+bandwidth-bound exactly like the reference's RAM scan, with the matrix
+units doing the arithmetic.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Tree indexes: Annoy (hyperplane forest), kd-forest, ball tree.
 
-TPU-native rebuild of the reference tree family (``src/cpu/annoy.rs``,
+JAX rebuild of the reference tree family (``src/cpu/annoy.rs``,
 ``kd_forest.rs``, ``ball_tree.rs``). The reference queries trees with
 per-query backtracking priority queues and search budgets
-(annoy.rs:526-642, kd_forest.rs:577-705, ball_tree.rs:767+); on TPU the
+(annoy.rs:526-642, kd_forest.rs:577-705, ball_tree.rs:767+); here the
 recall/compute budget comes instead from **candidate-set width**:
 
   * Annoy / kd-forest: every tree routes the query to one leaf
@@ -27,7 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops.ivf_scan_pallas import fused_eligible, fused_ivf_scan, repack_blocks
+from ..ops.ivf_scan_pallas import fused_eligible, fused_ivf_scan
 from ..ops.probe_device import build_probe_lists_device, device_probe_shapes
 from ..ops.rerank import rerank_exact, rerank_exact_split
 from ..ops.tree import (
@@ -50,14 +50,12 @@ _BALL_FUSED_MIN_CELLS = 512
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "beam", "nseg", "maxq", "R", "k", "kb", "metric", "interpret",
-        "layout",
+        "beam", "nseg", "maxq", "R", "k", "kb", "metric",
     ),
 )
 def _ball_fused_e2e(
-    q, cell_centers, cell_radii, blocks, sn_blocks, seg_offsets, seg_counts,
-    original_ids, n, *, beam, nseg, maxq, R, k, kb, metric, interpret,
-    layout,
+    q, cell_centers, cell_radii, storage, sqn, seg_offsets, seg_counts,
+    original_ids, n, *, beam, nseg, maxq, R, k, kb, metric,
 ):
     """Ball-bound cell ranking → device task lists → fused cell scan, one
     compiled dispatch (the same engine the IVF family and LSH ride; a ball
@@ -89,9 +87,9 @@ def _ball_fused_e2e(
         cells.astype(jnp.int32), nseg, maxq, R
     )
     d, pos = fused_ivf_scan(
-        q, cids, lists, gmap, blocks, sn_blocks, seg_offsets, seg_counts,
+        q, cids, lists, gmap, storage, sqn, seg_offsets, seg_counts,
         jnp.zeros((nseg, q.shape[1]), jnp.float32), k, metric, "f32",
-        None, kb, interpret=interpret, layout=layout,
+        None, kb,
     )
     ids = jnp.take(original_ids, jnp.clip(pos, 0, original_ids.shape[0] - 1))
     ids = jnp.where(jnp.isinf(d), n - 1, ids)
@@ -102,26 +100,25 @@ def _ball_fused_e2e(
     jax.jit,
     static_argnames=(
         "n_probes", "shift", "nseg_tree", "nt", "maxq", "R", "k", "k2",
-        "kb", "metric", "interpret", "layout",
+        "kb", "metric",
     ),
 )
 def _forest_fused_e2e(
-    q, norms_lv, thrs_lv, blocks, sn_blocks, seg_offsets, seg_counts,
+    q, norms_lv, thrs_lv, storage, sqn, seg_offsets, seg_counts,
     order_flat, n, *, n_probes, shift, nseg_tree, nt, maxq, R, k, k2, kb,
-    metric, interpret, layout,
+    metric,
 ):
     """Multi-probe forest descent → per-tree cell-major fused scan → id
-    dedup, ONE dispatch. Tree t's sorted order is a contiguous block of
-    the concatenated storage, so every probed leaf maps to segment
-    ``t·nseg_tree + (leaf >> shift)`` and the scan streams cells instead of
-    gathering ``n_trees·probes·leaf`` candidate rows per query (the gather
-    + rerank einsum was the measured floor of forest queries, ~1.0 s of a
-    2.0 s nt32 p4 query at 150k×32d). The merge is per-tree (``groups=nt``
-    in the fused scan — a [p·kb]-wide top-k per tree instead of one
-    [nt·p·kb]-wide global selection): each id appears at most once per
+    dedup, ONE dispatch. Tree t's sorted order is a contiguous block of the
+    concatenated storage, so every probed leaf maps to segment ``t·nseg_tree +
+    (leaf >> shift)`` and the scan streams cells instead of gathering
+    ``n_trees·probes·leaf`` candidate rows per query (the gather + rerank
+    einsum was the floor of forest queries). The merge is per-tree
+    (``groups=nt`` in the fused scan — a [p·kb]-wide top-k per tree instead of
+    one [nt·p·kb]-wide global selection): each id appears at most once per
     tree, so ``nt·k`` group-major lanes are guaranteed to contain the true
-    top-k distinct ids, and the LSH-style dedup keeps the k best.
-    Returns packed [nq, 2k] (dists, ids as exact f32 values)."""
+    top-k distinct ids, and the LSH-style dedup keeps the k best. Returns
+    packed [nq, 2k] (dists, ids as exact f32 values)."""
     from .lsh import _dedup_topk
 
     bq = q.shape[0]
@@ -185,9 +182,9 @@ def _forest_fused_e2e(
     )
     k_pg = min(k2, p * kb)  # per-tree survivors
     d, pos = fused_ivf_scan(
-        q, cids, lists, gmap, blocks, sn_blocks, seg_offsets, seg_counts,
+        q, cids, lists, gmap, storage, sqn, seg_offsets, seg_counts,
         jnp.zeros((nt * nseg_tree, q.shape[1]), jnp.float32), k_pg, metric,
-        "f32", None, kb, interpret=interpret, layout=layout, groups=nt,
+        "f32", None, kb, groups=nt,
     )
     ids_dup = jnp.take(order_flat, jnp.clip(pos, 0, order_flat.shape[0] - 1))
     ids_dup = jnp.where(jnp.isinf(d), n, ids_dup)
@@ -226,24 +223,24 @@ class _ForestIndex(BaseIndex):
             jax.random.key(seed), vecs, n_trees, levels, leaf, self._mode
         )
         # bf16 hi/lo split tables: the leaf-union rerank is candidate-
-        # gather-bound and split-table gathers are ~3× cheaper than f32
-        # row gathers (the beam-search lesson, ops/graph.nav_hl_split);
-        # None off-TPU → f32 rerank_exact path
+        # gather-bound and split-table gathers move fewer bytes than f32
+        # row gathers (ops/graph.nav_hl_split); None over the memory
+        # budget → f32 rerank_exact path
         from ..ops.graph import nav_hl_split
 
         self._vec_hl = nav_hl_split(vecs)
         self._qfns = {}
         self._scan_cache = None
 
-    # scan-view budget: per-tree packed cell blocks cost ~256·n bytes/tree
+    # scan-view budget: the tree-ordered f32 row copy costs 4·d·n bytes/tree
     _FOREST_SCAN_BYTES = 4 << 30
 
     def _scan_setup(self):
         """Lazy concatenated segment view over ALL trees for the fused cell
         scan (tree t's leaves are contiguous cells of block t; padding is
         each tree's global suffix). Returns None when the layout doesn't
-        fit the kernel (non-pow2 leaf, tiny forests) or the repacked
-        blocks would exceed the memory budget."""
+        fit the kernel (non-pow2 leaf, tiny forests) or the tree-ordered
+        row copy would exceed the memory budget."""
         if self._scan_cache is not None:
             return self._scan_cache if self._scan_cache != "off" else None
         t0 = self.trees[0]
@@ -254,11 +251,10 @@ class _ForestIndex(BaseIndex):
         while cell < 128:
             cell, shift = cell * 2, shift + 1
         n_pad = int(t0.order.shape[0])
-        # grow cells until the forest has ≤ ~8k segments: the fused kernel
-        # pays a fixed per-grid-step cost, so 65k 128-row cells (150k×nt32)
-        # ran grid-bound; 8× larger cells scan more rows per probe (MXU
-        # absorbs it) for 8× fewer steps — and each probe covers more
-        # leaves, so recall at a given probe count only goes up.
+        # grow cells until the forest has ≤ ~8k segments: fewer, larger
+        # cells mean fewer scan rows (less task-list padding) for more rows
+        # per probe — and each probe covers more leaves, so recall at a
+        # given probe count only goes up.
         while (
             nt * (n_pad // (2 * cell)) >= 8192
             and cell < 1024
@@ -267,7 +263,7 @@ class _ForestIndex(BaseIndex):
         ):
             cell, shift = cell * 2, shift + 1
         nseg_tree = n_pad // cell
-        bytes_est = nt * (n_pad + cell) * max(256, 4 * self.dim)
+        bytes_est = nt * (n_pad + cell) * 4 * self.dim
         if (
             not ok
             or cell % 128
@@ -291,15 +287,10 @@ class _ForestIndex(BaseIndex):
             self.n - np.arange(nseg_tree) * cell, 0, cell
         ).astype(np.int32)
         counts = jnp.asarray(np.tile(counts_tree, nt))
-        lane_pack = 2 * self.dim <= 128
-        blocks, sn_blocks = repack_blocks(
-            storage, sqn, offsets, cell, lane_pack=lane_pack
-        )
         self._scan_cache = dict(
             cell=cell, shift=shift, nseg_tree=nseg_tree, nt=nt,
-            offsets=offsets, counts=counts, blocks=blocks,
-            sn_blocks=sn_blocks, order=order_flat,
-            layout="packed2" if lane_pack else "plain",
+            offsets=offsets, counts=counts, storage=storage, sqn=sqn,
+            order=order_flat,
         )
         return self._scan_cache
 
@@ -413,25 +404,24 @@ class _ForestIndex(BaseIndex):
         if exact_fallback and self._exact_fallback_ok(q.shape[0]):
             return self._exact_query_small(q, k)
         nq = q.shape[0]
+        # scan cells are multiples of 128 rows (_scan_setup); ids ride back
+        # as exact f32 values below 2²⁴
         scan = (
             self._scan_setup()
-            if not os.environ.get("ANNSEARCH_NO_PALLAS")
+            if fused_eligible("f32", 128, self.dim, min(k, 128))
             and self.n < (1 << 24)
             else None
         )
-        if scan is not None and fused_eligible(
-            "f32", scan["cell"], self.dim, min(k, 128)
-        ):
+        if scan is not None:
             nt = scan["nt"]
             nseg_tree = scan["nseg_tree"]
             n_levels = self.trees[0].n_levels
             n_extra = min(n_probes - 1, n_levels) if n_probes > 1 else 0
-            # block queries so the per-dispatch task-slot count stays
-            # bounded: the wrapper's per-task query gather is R·maxq
-            # slots × a 128-lane bf16 row — unblocked p8 at nt32/150k is
-            # ~6M slots ≈ 1.5 GB of transient (compile OOM). Halve the
-            # block until the slot budget holds (min 2048 — below that
-            # the per-block nseg partial-row floor dominates R).
+            # block queries so the per-dispatch task-slot count R·maxq
+            # stays bounded (each slot carries kb (distance, row) outputs
+            # and its gather-map lanes). Halve the block until the slot
+            # budget holds (min 2048 — below that the per-block nseg
+            # partial-row floor dominates R).
             qb = nq
             while True:
                 maxq, R = device_probe_shapes(
@@ -442,9 +432,7 @@ class _ForestIndex(BaseIndex):
                 qb = -(-qb // 2)
             if R * maxq > (1 << 23):
                 scan = None  # pathological (huge forest): gather path
-        if scan is not None and fused_eligible(
-            "f32", scan["cell"], self.dim, min(k, 128)
-        ):
+        if scan is not None:
             # per-tree merge keeps k lanes per tree (an id appears ≤ once
             # per tree, so the top-k distinct ids always survive); the
             # final dedup+top-k runs over nt·k group-major lanes
@@ -470,14 +458,12 @@ class _ForestIndex(BaseIndex):
             outs = []
             for s in range(0, qp.shape[0], qb):
                 outs.append(np.asarray(_forest_fused_e2e(
-                    qp[s : s + qb], norms_lv, thrs_lv, scan["blocks"],
-                    scan["sn_blocks"], scan["offsets"], scan["counts"],
+                    qp[s : s + qb], norms_lv, thrs_lv, scan["storage"],
+                    scan["sqn"], scan["offsets"], scan["counts"],
                     scan["order"], self.n,
                     n_probes=n_probes, shift=scan["shift"],
                     nseg_tree=nseg_tree, nt=nt, maxq=maxq, R=R, k=k, k2=k2,
                     kb=kb, metric=self.metric,
-                    interpret=jax.default_backend() != "tpu",
-                    layout=scan["layout"],
                 )))
             packed = np.concatenate(outs)[:nq]
             return packed[:, k:].astype(np.int32), packed[:, :k]
@@ -650,16 +636,10 @@ class BallTreeIndex(BaseIndex):
             [storage, jnp.zeros((cell, self.dim), jnp.float32)]
         )
         sqn = jnp.concatenate([sqn, jnp.zeros((cell,), jnp.float32)])
-        lane_pack = 2 * self.dim <= 128
-        blocks, sn_blocks = repack_blocks(
-            storage, sqn, offsets, cell, lane_pack=lane_pack
-        )
         self._scan_cache = dict(
             cell=cell, nseg=nseg, centers=centers, radii=radii,
             offsets=offsets, counts=jnp.asarray(counts),
-            blocks=blocks, sn_blocks=sn_blocks,
-            order=order.astype(jnp.int32),
-            layout="packed2" if lane_pack else "plain",
+            storage=storage, sqn=sqn, order=order.astype(jnp.int32),
         )
         return self._scan_cache
 
@@ -684,15 +664,15 @@ class BallTreeIndex(BaseIndex):
             return self._exact_query_small(q, k)
         budget = 0.05 if budget is None else budget
         nq = q.shape[0]
+        # scan cells are multiples of 128 rows (_scan_setup); ids ride back
+        # as exact f32 values below 2²⁴
         scan = (
             self._scan_setup()
-            if not os.environ.get("ANNSEARCH_NO_PALLAS")
+            if fused_eligible("f32", 128, self.dim, k)
             and self.n < (1 << 24)
             else None
         )
-        if scan is not None and fused_eligible(
-            "f32", scan["cell"], self.dim, k
-        ):
+        if scan is not None:
             nseg = scan["nseg"]
             beam = min(
                 nseg, max(1, int(math.ceil(budget * self.n / scan["cell"])))
@@ -700,12 +680,10 @@ class BallTreeIndex(BaseIndex):
             maxq, R = device_probe_shapes(nq, beam, nseg, 1)
             kb = min(128, max(8, 1 << (max(k, 8) - 1).bit_length()))
             packed = np.asarray(_ball_fused_e2e(
-                q, scan["centers"], scan["radii"], scan["blocks"],
-                scan["sn_blocks"], scan["offsets"], scan["counts"],
+                q, scan["centers"], scan["radii"], scan["storage"],
+                scan["sqn"], scan["offsets"], scan["counts"],
                 scan["order"], self.n, beam=beam, nseg=nseg, maxq=maxq,
                 R=R, k=k, kb=kb, metric=self.metric,
-                interpret=jax.default_backend() != "tpu",
-                layout=scan["layout"],
             ))
             return packed[:, k:].astype(np.int32), packed[:, :k]
         beam = max(1, int(math.ceil(budget * self.n / self.leaf)))

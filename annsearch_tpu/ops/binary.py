@@ -2,7 +2,7 @@
 
 Replaces the reference's SIMD Hamming layer (``src/binary/dist_binary.rs`` —
 AVX-512/AVX2/NEON XOR+popcount :35-219, asymmetric float×{−1,+1} dot
-:303-322) with an MXU formulation: codes are unpacked per tile to ±1
+:303-322) with an tensor-core formulation: codes are unpacked per tile to ±1
 bfloat16 and Hamming distance falls out of a dense matmul via
 
     dot±(q, x) = nbits − 2·hamming(q, x)
@@ -10,7 +10,7 @@ bfloat16 and Hamming distance falls out of a dense matmul via
 (products are exactly ±1 and accumulation is f32, so the integer result is
 exact). For batched queries this turns the whole scan into the same
 distance-matmul + running-top-k shape as every other index — one code path,
-MXU-saturating, instead of per-pair popcount loops. A popcount
+tensor-core-saturating, instead of per-pair popcount loops. A popcount
 (``lax.population_count``) variant is kept for parity testing.
 """
 
@@ -58,7 +58,7 @@ def unpack_bits(codes: jax.Array, nbits: int) -> jax.Array:
 
 
 def unpack_pm1(codes: jax.Array, nbits: int) -> jax.Array:
-    """Unpack to ±1 bfloat16 (MXU operand)."""
+    """Unpack to ±1 bfloat16 (tensor-core operand)."""
     bits = unpack_bits(codes, nbits).astype(jnp.bfloat16)
     return bits * 2.0 - 1.0
 

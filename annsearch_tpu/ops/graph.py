@@ -1,6 +1,6 @@
 """Graph-index kernels: kNN-graph construction rounds + batched beam search.
 
-TPU-native rebuild of the reference's graph machinery — CPU NNDescent
+JAX rebuild of the reference's graph machinery — CPU NNDescent
 (``src/cpu/nndescent.rs``: candidate sampling, local joins, radix-sort
 merges), GPU NNDescent (``src/gpu/nndescent_gpu.rs``: reverse-candidate
 kernels, shared-memory local joins, atomic proposal merges) and the CAGRA
@@ -21,7 +21,7 @@ algorithms are reformulated:
   * **RP-forest init** exploits that a random-projection tree over a 1-D
     projection is contiguous ranges of the sort order: L levels of
     sort-by-(group, projection) produce leaves; intra-leaf all-pairs
-    distances are dense [leaf × leaf] MXU matmuls (the reference's
+    distances are dense [leaf × leaf] tensor-core matmuls (the reference's
     leaf_pairwise_proposals in shared memory, forest_gpu.rs).
   * **CAGRA pruning** (nndescent_gpu.rs:827-1056): rank-based detour pruning
     batched over node tiles; reverse-edge fill via hashed scatter; merge.
@@ -57,16 +57,14 @@ __all__ = [
 
 def nav_hl_split(vectors: jax.Array):
     """bf16 hi/lo split of a vector table for beam-search candidate scoring
-    (see ``beam_search`` ``vectors_hl``). Returns None off-TPU — XLA:CPU
-    cannot run batched bf16 dots, and the gather-bandwidth win is a TPU
-    property. The split costs an extra 2×bf16 copy of the whole table
-    (5.1 GB at 10M×128d) next to the f32 original, so it is gated on an
-    HBM budget like the neighbour packing: ``ANNSEARCH_HL_BYTES``
-    (default 3 GiB; 0 disables)."""
+    (see ``beam_search`` ``vectors_hl``): candidate gathers move two bf16
+    rows instead of one f32 row plus its norm reduction. The split costs an
+    extra 2×bf16 copy of the whole table (5.1 GB at 10M×128d) next to the
+    f32 original, so it is gated on a device-memory budget like the
+    neighbour packing: ``ANNSEARCH_HL_BYTES`` (default 3 GiB; 0 disables).
+    Returns None when the table is over budget."""
     import os
 
-    if jax.default_backend() != "tpu":
-        return None
     budget = int(os.environ.get("ANNSEARCH_HL_BYTES", 3 << 30))
     if 4 * vectors.shape[0] * vectors.shape[1] > budget:
         # recall-affecting fallback (candidate scoring drops to a single
@@ -145,7 +143,8 @@ def pack_neighbor_table(
 
     The per-iteration floor of :func:`beam_search` is the candidate-row
     gather: ``expand·deg`` random 64–128 B reads per query from the vector
-    table run at a few GB/s on TPU (HBM gathers want ≥ ~1 KB granularity).
+    table waste most of each memory transaction (device-memory gathers want
+    long contiguous rows).
     Packing each node's neighbour vectors next to the node turns that into
     ``expand`` reads of ``deg·(2d+2)·2`` B (multi-KB DMAs) — the same trade
     the reference's GPU CAGRA kernel gets from coalesced warp loads
@@ -197,9 +196,9 @@ def _row_dedup_inf(ids: jax.Array, dists: jax.Array) -> jax.Array:
     ids/dists: [..., C].
 
     Narrow rows (C ≤ 128, the common merge/beam widths) use an O(C²)
-    broadcast compare — pure VPU elementwise work, measured cheaper than the
-    two argsorts of the sort-mark-unsort scheme that dominated round time
-    (VERDICT r1 weak #7). Wide rows keep the argsort path."""
+    broadcast compare — pure elementwise work, cheaper than the two
+    argsorts of the sort-mark-unsort scheme that dominated round time.
+    Wide rows keep the argsort path."""
     C = ids.shape[-1]
     if C <= 128:
         earlier = jnp.tril(jnp.ones((C, C), bool), -1)
@@ -235,8 +234,8 @@ def _merge_rows(
 # ---------------------------------------------------------------------------
 # bitonic networks (sorted-beam maintenance without lax.top_k)
 #
-# `lax.top_k` + its payload `take_along_axis` gathers were measured as ~75%
-# of a beam-search iteration (2.1 of 2.9 ms at bq=1024, beam=100, C=128).
+# `lax.top_k` + its payload `take_along_axis` gathers dominated a
+# beam-search iteration.
 # Hand-rolled compare-exchange stages are pure elementwise where/min/max on
 # statically reshaped lanes — XLA fuses the whole network, payload lanes ride
 # each exchange as one extra `where`, and no gather is ever emitted.
@@ -457,11 +456,11 @@ def leaf_join_merge(
 ) -> tuple[jax.Array, jax.Array]:
     """All-pairs join inside each leaf, merged into the members' graph rows.
 
-    The join is pure GEMM (the TPU-native substitute for the reference's
+    The join is pure GEMM (the matmul substitute for the reference's
     random-access local joins) and is chunked over leaf blocks with a
     top-kk pre-select per member, so peak memory is O(n·kk) instead of
     O(n·leaf): top-kk(row ∪ leaf) ≡ top-kk(row ∪ top-kk(leaf)), which
-    admits large (MXU-efficient) leaves. Scatters are collision-free —
+    admits large (tensor-core-efficient) leaves. Scatters are collision-free —
     leaves partition the points.
     """
     n = graph_ids.shape[0]
@@ -477,8 +476,8 @@ def leaf_join_merge(
 
     # Stream leaf blocks through join+merge+scatter as ONE jitted step per
     # block: stacking all candidates first ([n, ksel] ids+dists) plus the
-    # full-width merge workspace exceeds large-n HBM budgets (measured
-    # OOM at 10M×128d next to the 5.1 GB vector table), while per-block
+    # full-width merge workspace exceeds large-n device-memory budgets
+    # (10M×128d next to the 5.1 GB vector table), while per-block
     # transients are a few hundred MB. The scatter stays collision-free —
     # leaves partition the points, so blocks touch disjoint rows. Blocks
     # are uniform [bg, leaf], so the step compiles exactly once.
@@ -498,7 +497,7 @@ def leaf_join_merge(
 )
 def _leaf_step(lv, gi, gd, vectors, sqnorms, *, kk, ksel, metric):
     """One leaf block of :func:`leaf_join_merge`: all-pairs join on the
-    MXU, top-ksel pre-select, merge into the members' graph rows."""
+    tensor-core, top-ksel pre-select, merge into the members' graph rows."""
     from ..utils.dist import mantissa_split
 
     n = gi.shape[0]
@@ -558,7 +557,7 @@ def kmeans_leaves(
     assignment — the same idea as IVF multi-probe) catches cell-boundary
     pairs; the projection sub-order moves chunk boundaries inside large
     cells between passes. Combined with ``leaf_join_merge`` this is the
-    MXU-shaped replacement for the reference's NN-descent sampling at
+    tensor-core-shaped replacement for the reference's NN-descent sampling at
     scale (nndescent.rs:706-801): all candidate generation is GEMM + sort,
     no random-access gathers.
     """
@@ -572,8 +571,8 @@ def kmeans_leaves(
     # bound the [tile, nc] distance transients: the iterated-argmin
     # rounds (jth > 0) keep up to jth+1 copies live — the sequential
     # mask chain breaks XLA's matmul→reduce fusion — and nc grows with n
-    # (19.5k cells at 10M ⇒ 10 GB per copy at the default tile; measured
-    # OOM at pass 3). ~640 MB per copy keeps the worst case under 2 GB.
+    # (19.5k cells at 10M ⇒ 10 GB per copy at the default tile). ~640 MB
+    # per copy keeps the worst case under 2 GB.
     tile = min(tile, max(8192, ((5 << 27) // (4 * nc)) // 8192 * 8192))
 
     n_pad_t = -(-n // tile) * tile
@@ -587,9 +586,8 @@ def kmeans_leaves(
         )
         dc = -dots if metric == Dist.COSINE else csq[None, :] - 2.0 * dots
         # (jth+1)-nearest cell via j masked argmin rounds, NOT top_k:
-        # the k=2 top_k variant of this program crashes the XLA:TPU AOT
-        # compile helper (reproducible, 10M×128d shapes), and iterated
-        # argmin is cheaper anyway — the where-mask fuses into the tile
+        # iterated argmin is cheaper than a k=2 top_k — the where-mask
+        # fuses into the tile
         for _ in range(j):
             m = jnp.argmin(dc, axis=1)
             dc = jnp.where(
@@ -698,9 +696,9 @@ def nnd_round(
 
     Without the reverse channels, improvements discovered elsewhere can
     only reach u through its own forward expansion and rounds stall
-    (measured: update rate 0.60 after 10 rounds at 1M — VERDICT r2; the
-    two-sided channels moved forced-1M convergence from the 0.96 class
-    toward the reference's 0.999 class, round 5).
+    (update rate 0.60 after 10 rounds at 1M; the two-sided channels move
+    forced-1M convergence from the 0.96 class toward the reference's
+    0.999 class).
 
     With ``new_in`` flags, implements the reference's incremental new/old
     candidate scheme (nndescent.rs:706-801 — edges are marked old once their
@@ -924,9 +922,7 @@ def nnd_round_chunked(
     """One NN-descent round as several bounded dispatches over row ranges.
 
     A full-width round over 1M rows as ONE program is a multi-minute XLA
-    dispatch — measured to crash the TPU worker ("kernel fault") twice at
-    the same spot, while the identical per-step program at 250k runs fine.
-    Chunking rows keeps each dispatch tens of seconds and is semantically
+    dispatch. Chunking rows keeps each dispatch short and is semantically
     identical below 8M rows: every chunk expands candidates from the
     round-start graph snapshot (exactly what the single-dispatch map
     reads) and merges only into its own rows; the reverse tables are
@@ -1207,10 +1203,7 @@ def beam_search(
         x_hi, x_lo = vectors_hl
 
     def packed_dists(sel_ids, nbrs):
-        # XLA:CPU cannot run batched bf16×bf16→f32 dots — cast up off-TPU
-        # (tests exercise the same layout/masking; the dtype is the only
-        # backend switch)
-        bf = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
+        bf = jnp.bfloat16
         rows = packed_nbrs[jnp.minimum(sel_ids, n)]  # [bq, e, deg·(2d+2)]
         rows = rows.reshape(bq, -1, 2 * d_dim + 2)   # [bq, e·deg, 2d+2]
         xh = rows[..., :d_dim].astype(bf)

@@ -2,28 +2,27 @@
 
 The reference GPU IVF pipeline builds a host-side task list
 (query, cluster-range, write offset) and launches one mega-kernel over it
-(``src/gpu/ivf_gpu.rs:575-697``). The TPU reformulation keeps the host-built
+(``src/gpu/ivf_gpu.rs:575-697``). This reformulation keeps the host-built
 probe lists but inverts the loop to make every step a *dense* matmul:
 
   scan over active clusters c:
     cell   = storage[offsets[c] : offsets[c]+cap]          (one DMA, shared)
     dec    = decode(cell)                                  (variant-specific)
     qg     = queries[probe_lists[c]]                       ([maxq, d] gather)
-    dists  = distance(qg, dec)                             ([maxq, cap] MXU)
+    dists  = distance(qg, dec)                             ([maxq, cap] matmul)
     ys[c]  = per-(query,cell) top-k_cell                   (dense stacked write)
 
-Each cell is read/decoded ONCE per query batch regardless of how many
-queries probe it, and the scoring matmul is [maxq, d] × [d, cap] — dense MXU
-work. Per-step results are stacked densely by ``lax.scan`` (contiguous
-writes — the previous design's scatter into a per-query proposal buffer was
-~40% of step time); one host-built gather map regroups lanes per query for
-the final top-k.
+Each cell is read/decoded ONCE per query batch regardless of how many queries
+probe it, and the scoring matmul is [maxq, d] × [d, cap] — dense matrix-unit
+work. Per-step results are stacked densely by ``lax.scan`` (contiguous writes —
+the previous design's scatter into a per-query proposal buffer was ~40% of step
+time); one host-built gather map regroups lanes per query for the final top-k.
 
 Supports storage variants: f32, bf16, int8 (SQ8 integer-space), PQ codes
 (+ residual PQ for IVF-PQ/OPQ), int8 fast-scan decode caches
 (i8dec/i8dec_residual — PQ reconstructions requantised per-dim to int8 so
 the scan is a pure matmul with zero decode work; exact int8 values are
-loss-free in bf16 on the MXU).
+loss-free in bf16 on the tensor cores).
 """
 
 from __future__ import annotations
@@ -292,7 +291,7 @@ def ivf_cluster_scan(
             # RaBitQ unbiased estimator (reference dist_binary.rs:466-588,
             # rabitq.rs:97-207). queries/centroids arrive pre-rotated and
             # zero-padded to w·32 lanes; sn = ‖x−c‖; aux = ‖R·u‖₁.
-            # TPU deviation: the sign dot is an exact ±1 matmul instead of
+            # Deviation: the sign dot is an exact ±1 matmul instead of
             # the reference's int4-quantised SIMD dot.
             nbits = storage.shape[1] * 32
             rqr = qg - centroids_x[c][:, None, :]
@@ -350,10 +349,9 @@ def ivf_cluster_scan(
                     q_sq[qid_safe][:, :, None] + sn[:, None, :] - 2.0 * dots,
                     0.0,
                 )
-        else:  # f32 / bf16 dense vectors
-            lhs = qg.astype(storage.dtype) if mode == "bf16" else qg
-            d_prec = prec_f32 if mode == "f32" else None
-            dots = dots_of(lhs, cells, d_prec)
+        else:  # f32 / bf16 dense vectors (bf16 rows widen exactly to f32,
+            # so distances are f32-exact over the stored rows)
+            dots = dots_of(qg, cells.astype(jnp.float32), prec_f32)
             if metric == Dist.COSINE:
                 d = 1.0 - dots
             else:

@@ -1,357 +1,255 @@
-"""Fused Pallas IVF cell-scan kernel.
+"""Fused IVF cell-scan kernel (Pallas, Triton route).
 
-The XLA-composed cluster scan (``ops/ivf_scan.py``) bottoms out at
-~0.2 ms/step: every step round-trips the [maxq, cap] distance tile and the
-per-cell selection through HBM, and the dynamic storage slices defeat XLA's
-prefetcher. This kernel fuses score → epilogue → select inside VMEM, with
-the cell blocks streamed by the Pallas pipeline itself (scalar-prefetched
-block ids drive the BlockSpec index map, so the next cell's DMA overlaps the
-current cell's matmul — the TPU analogue of the reference GPU's
-fire-and-forget mega-kernel, src/gpu/dist_gpu.rs:742-1652).
+The XLA cluster scan (``ops/ivf_scan.py``) writes every ``[maxq, cap]``
+distance tile to device memory and reads it back for a ``top_k``; on a
+memory-bound scan that round trip is the largest byte stream. This kernel
+keeps the tile on chip: one grid block owns one scan row (a cell segment and
+the padded list of queries that probe it) and ``_BQ`` of those queries. It
+gathers its queries, walks the cell in ``_BS``-row chunks — one ``pl.dot``
+per chunk, the metric epilogue, then a fold of the chunk into per-residue
+-class (best, runner-up) survivors held in registers — and after the cell
+extracts ``kb`` candidates per query. Only ``[maxq, kb]`` per row reaches
+device memory. Each cell is read once per block of queries that probes it:
+the task-list design of the reference's GPU IVF path
+(``src/gpu/ivf_gpu.rs:575-697``).
 
-Selection inside the kernel is two-stage and approximate-with-recovery:
-fold the ``seg`` lanes to 128 stride-class minima (full-lane VPU ops),
-then extract ``kb`` minima from the 128 survivors. Each (query, task) keeps
-``kb ≥ k`` candidates and the final cross-task top-k outside the kernel is
-exact, so quality matches ``lax.approx_min_k`` per-cell selection (the
-``approx=True`` scan mode).
+Selection is approximate-with-recovery: the fold keeps the best two rows of
+each residue class mod ``_BS``, ``kb ≥ k`` candidates per (query, task)
+survive, and the final cross-task top-k outside the kernel is exact — the
+quality of ``lax.approx_min_k`` per-cell selection (the XLA scan's
+``approx=True`` mode).
 
-Storage layout: cells are repacked once per index into block-aligned
-``[nseg+1, seg, w]`` tiles (sentinel block = zeros) so the kernel's
-index map is a pure block lookup; the repack is an on-device gather cached
-by the caller.
+Cells are read in place from the cluster-sorted storage (rows
+``seg_offsets[s] .. + seg_counts[s]``); the storage carries at least
+``seg_size`` trailing pad rows, so a chunk never reads past its end.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from ..utils.dist import Dist, mantissa_split, sq_norms
+from ..utils.dist import Dist
 
-__all__ = ["fused_eligible", "fused_ivf_scan", "repack_blocks"]
+__all__ = ["fused_eligible", "fused_ivf_scan"]
 
-_LANES = 128
-#: finite "masked" sentinel used inside kernels (fast-math-safe stand-in
-#: for +inf; still ranks last in every top-k merge). Python float — a jnp
-#: scalar would be a captured constant, which pallas kernels reject.
+#: queries per grid block, cell rows per chunk (= the fold's residue
+#: classes), warps per block and software-pipeline stages — chosen on an
+#: H100 at the 1M×128d IVF-PQ shape (8 warps beat 4 by ~1.6×; BQ 64 beat
+#: 32 and 128; stage count moved the time by a few per cent)
+_BQ = 64
+_BS = 128
+_NUM_WARPS = 8
+_NUM_STAGES = 1
+#: finite "masked" sentinel inside the kernel; mapped to +inf on the way out
 _BIG = 3.0e38
 
 
-def _next_pow2(v: int) -> int:
-    return 1 << (max(v, 1) - 1).bit_length()
+def _on_gpu() -> bool:
+    return jax.default_backend() == "gpu"
 
 
 def fused_eligible(mode: str, seg_size: int, dim_w: int, k: int) -> bool:
-    """The fused kernel handles dense-row storage (one matmul per cell) with
-    hardware-aligned tiles. PQ-coded / packed-bit modes keep the XLA scan.
-    ``ANNSEARCH_NO_PALLAS=1`` disables the fused path entirely."""
-    import os
-
-    if os.environ.get("ANNSEARCH_NO_PALLAS"):
+    """Whether a scan takes the fused kernel: on a GPU only (every other
+    backend takes the XLA scan), for dense-row storage (one matmul per
+    chunk) whose row width is a power of two in [16, 256] (the kernel's
+    tiles are powers of two, and a chunk of wider rows outgrows a block's
+    shared memory), with segments a multiple of the chunk and ``k`` within
+    the extraction width. ``ANNSEARCH_NO_PALLAS=1`` forces the XLA scan."""
+    if os.environ.get("ANNSEARCH_NO_PALLAS") or not _on_gpu():
         return False
-    # f32 cells with 2·d ≤ 128 ride the lane-packed hi/lo layout (all four
-    # mantissa cross terms share one 128-lane contraction — the flat
-    # kernel's _prep_parts trick); every other dense mode zero-pads the
-    # contraction dim to a lane multiple (repack_blocks) — padded lanes
-    # contribute 0 to the dots and norms ride separately, so small-dim
-    # bf16/sq8/int8 cells take the same single-dispatch fused path instead
-    # of the per-cell XLA scan (VERDICT r4 weak #2: ivf-bf16 150k×32d was
-    # 8× the reference CPU through the XLA tier)
     return (
         mode in ("f32", "bf16", "i8dec", "i8dec_residual", "sq8")
-        and seg_size % _LANES == 0
-        and seg_size >= _LANES
-        and k <= _LANES
+        and 16 <= dim_w <= 256
+        and dim_w & (dim_w - 1) == 0
+        and seg_size % _BS == 0
+        and k <= _BS
     )
-
-
-def _pad_lanes(a: jax.Array, width: int) -> jax.Array:
-    pad = width - a.shape[-1]
-    if pad == 0:
-        return a
-    return jnp.concatenate(
-        [a, jnp.zeros(a.shape[:-1] + (pad,), a.dtype)], axis=-1
-    )
-
-
-def repack_blocks(
-    storage: jax.Array, sqnorms: jax.Array, seg_offsets: jax.Array,
-    seg_size: int, lane_pack: bool = False,
-) -> tuple[jax.Array, jax.Array]:
-    """Gather the segmented storage into block-aligned [nseg+1, seg, w] tiles
-    (+1 = zero sentinel block for padded scan rows). On-device; cached by the
-    index. ``lane_pack`` (f32, 2·d ≤ 128 only): store cells as the
-    lane-tiled hi/lo layout ``[x₀|x₁|x₀|x₁|…]`` so the query side can pack
-    all four mantissa cross terms into the 128-lane contraction —
-    matching ``fused_ivf_scan(layout="packed2")``."""
-    idx = seg_offsets.astype(jnp.int32)[:, None] + jnp.arange(
-        seg_size, dtype=jnp.int32
-    )
-    g = jnp.concatenate(
-        [storage[idx], jnp.zeros((1, seg_size) + storage.shape[1:],
-                                 storage.dtype)]
-    )
-    if g.dtype == jnp.float32 and lane_pack and 2 * g.shape[-1] <= _LANES:
-        parts = mantissa_split(g, 2)
-        unit = jnp.concatenate(parts, axis=-1)          # [.., 2d]
-        rep = _LANES // unit.shape[-1]
-        tiled = jnp.concatenate([unit] * rep, axis=-1)
-        cells = (_pad_lanes(tiled, _LANES).astype(jnp.bfloat16),)
-    elif g.dtype == jnp.float32:
-        # hi/lo bf16 mantissa split (the kernel's 3-pass f32-grade matmul);
-        # masked split — a plain astype round-trip is elided by XLA's
-        # excess-precision pass, zeroing the lo term (utils/dist.py)
-        cells = mantissa_split(g, 2)
-    else:
-        cells = (g,)
-    # non-lane-multiple dims: zero-pad the contraction axis to full lanes
-    # (Mosaic needs whole (8, 128) tiles; padded lanes add 0 to every dot,
-    # and norms travel separately in sn). The query side pads to match in
-    # fused_ivf_scan.
-    w = cells[0].shape[-1]
-    if w % _LANES:
-        w_pad = -(-w // _LANES) * _LANES
-        cells = tuple(_pad_lanes(c, w_pad) for c in cells)
-    sn = jnp.concatenate(
-        [sqnorms[idx].astype(jnp.float32),
-         jnp.zeros((1, seg_size), jnp.float32)]
-    )
-    # sublane-replicated [nseg+1, 8, seg] (full (8,128) tiles for Mosaic)
-    nsegp = sn.shape[0]
-    return cells, jnp.broadcast_to(sn[:, None, :], (nsegp, 8, seg_size))
 
 
 def _scan_kernel(
-    # scalar prefetch
-    blk_ref,      # [R] int32 block ids
-    cnt_ref,      # [R] int32 valid rows per block
-    *refs,        # q terms..., cell terms..., qadd, sn, cd_out, ci_out
+    starts_ref,   # [R] int32 first storage row of each scan row's segment
+    counts_ref,   # [R] int32 valid rows of that segment (0 = sentinel row)
+    lists_ref,    # [BQ] int32 query ids of this block (pad = nq)
+    q_ref,        # [nq+1, d] f32 queries (row nq = zeros)
+    qn_ref,       # [nq+1] f32 per-query additive term
+    cent_ref,     # [d] f32 this row's centroid (residual modes)
+    scales_ref,   # [d] f32 per-dim decode scales (i8dec modes)
+    x_ref,        # [n_pad, d] cell storage (f32 / bf16 / int8)
+    sn_ref,       # [n_pad] row norms in the scoring space
+    cd_ref,       # [BQ, kb] f32 out
+    ci_ref,       # [BQ, kb] int32 out (row within the segment)
+    *,
     epilogue: str,
+    residual: bool,
+    scaled: bool,
+    f32_dot: bool,
     kb: int,
-    nq_t: int,    # number of query mantissa terms (1 or 2)
-    nx_t: int,    # number of cell mantissa terms (1 or 2)
-    fold_depth: int,
-    selection: str,
 ):
-    q_refs = refs[:nq_t]
-    x_refs = refs[nq_t:nq_t + nx_t]
-    qadd_ref = refs[nq_t + nx_t]      # [1, 8, maxq] f32 (sublane-replicated)
-    sn_ref = refs[nq_t + nx_t + 1]    # [1, 8, seg] f32 (sublane-replicated)
-    cd_ref = refs[nq_t + nx_t + 2]    # [1, kb, maxq] f32 (kb-major: a
-    ci_ref = refs[nq_t + nx_t + 3]    # [1, kb, maxq] int32   [maxq, kb]
-    # block would put kb on the 128-lane axis and pad 8× in HBM)
     r = pl.program_id(0)
-    kb_s = cd_ref.shape[1]
-    maxq_s = cd_ref.shape[2]
-
-    # rows with no valid cells (sentinel / padding) skip all compute but
-    # must still emit masked outputs — their lanes may appear in gather maps
-    @pl.when(cnt_ref[r] == 0)
-    def _():
-        cd_ref[0] = jnp.full((kb_s, maxq_s), _BIG, jnp.float32)
-        ci_ref[0] = jnp.zeros((kb_s, maxq_s), jnp.int32)
-
-    @pl.when(cnt_ref[r] > 0)
-    def _():
-        _scan_body(
-            r, cnt_ref, q_refs, x_refs, qadd_ref, sn_ref, cd_ref, ci_ref,
-            epilogue=epilogue, kb=kb, nq_t=nq_t, nx_t=nx_t,
-            fold_depth=fold_depth, selection=selection,
-        )
-
-
-def _scan_body(
-    r, cnt_ref, q_refs, x_refs, qadd_ref, sn_ref, cd_ref, ci_ref,
-    *, epilogue, kb, nq_t, nx_t, fold_depth, selection,
-):
-    dn = (((1,), (1,)), ((), ()))
-
-    def mm(a_ref, b_ref):
-        return jax.lax.dot_general(
-            a_ref[0].astype(jnp.bfloat16), b_ref[0].astype(jnp.bfloat16),
-            dn, preferred_element_type=jnp.float32,
-        )
-
-    dots = mm(q_refs[0], x_refs[0])               # [maxq, seg]
-    if nx_t == 2:  # f32 cells, hi/lo split: hi·hi + hi·lo + lo·hi
-        dots = dots + mm(q_refs[0], x_refs[1])
-    if nq_t == 2:
-        dots = dots + mm(q_refs[1], x_refs[0])
-    if nq_t == 2 and nx_t == 2 and selection == "exact":
-        # exact tier adds the lo·lo term: all four mantissa cross terms =
-        # f32-grade (Precision.HIGHEST parity with the XLA exact scan)
-        dots = dots + mm(q_refs[1], x_refs[1])
-    maxq, seg = dots.shape
-    # rows are sublane-replicated ([*, 8, W] tiles — natively-tiled (8,128)
-    # layouts; a (1, W) block is a partial tile Mosaic handles poorly)
-    sn = sn_ref[0, 0:1, :]                        # [1, seg]
-    qadd = qadd_ref[0, 0]                         # [maxq]
-    if epilogue == "l2":
-        dist = jnp.maximum(qadd[:, None] + sn - 2.0 * dots, 0.0)
-    elif epilogue == "cos_renorm":
-        rs = jax.lax.rsqrt(jnp.maximum(sn, 1e-12))
-        dist = 1.0 - (dots + qadd[:, None]) * rs
-    elif epilogue == "cos_qnorm":
-        # sq8 cosine: qadd carries 1/‖q‖ (0 for zero queries), sn the raw
-        # quantised ‖x‖² — matches the XLA scan's integer-space cosine
-        rs = jax.lax.rsqrt(jnp.maximum(sn, 1e-12))
-        dist = 1.0 - dots * qadd[:, None] * rs
-    else:  # cos_plain — rows pre-normalised
-        dist = 1.0 - dots
-
-    # large finite sentinel, not inf: Mosaic compiles with fast-math-style
-    # flags (--xla_allow_excess_precision) where inf compare behaviour is
-    # not guaranteed
-    lane = jax.lax.broadcasted_iota(jnp.int32, (maxq, seg), 1)
-    dist = jnp.where(lane < cnt_ref[r], dist, _BIG)
-
-    if selection == "exact":
-        # EXACT per-segment top-kb: extract straight from the full seg-wide
-        # distance tile — no fold, so no mod-128 collision loss (the fold
-        # tier's only approximation). Costs kb seg-wide VPU sweeps instead
-        # of kb 2·128-lane ones; worth it on the recall-1.0 query tier.
-        vals = dist
-        idx = lane
+    start = starts_ref[r]
+    cnt = counts_ref[r]
+    qids = lists_ref[...]
+    cols = jax.lax.broadcasted_iota(jnp.int32, (1, q_ref.shape[1]), 1)
+    q = plt.load(q_ref.at[qids[:, None], cols])          # [BQ, d] gather
+    if residual:
+        c = cent_ref[...][None, :]
+        if epilogue == "l2":
+            q = q - c
+            qadd = jnp.sum(q * q, axis=1)
+        else:
+            qadd = jnp.sum(q * c, axis=1)
     else:
-        # stage 1: fold seg lanes → per-stride-class (best, runner-up) pairs
-        # (full-lane VPU ops). Keeping TWO survivors per residue class
-        # matters on clustered data, where a query's top-k concentrates in
-        # one cell: a single-survivor fold loses any top-k pair colliding
-        # mod 128.
-        li = jax.lax.broadcasted_iota(jnp.int32, (maxq, _LANES), 1)
-        vals = dist[:, :_LANES]
-        idx = li
-        if fold_depth == 2:
-            vals2 = jnp.full((maxq, _LANES), _BIG, jnp.float32)
-            idx2 = jnp.zeros((maxq, _LANES), jnp.int32)
-        for c in range(1, seg // _LANES):
-            nv = dist[:, c * _LANES:(c + 1) * _LANES]
-            ni = c * _LANES + li
-            upd = nv < vals
-            if fold_depth == 2:
-                lose_v = jnp.where(upd, vals, nv)
-                lose_i = jnp.where(upd, idx, ni)
-            vals = jnp.where(upd, nv, vals)
-            idx = jnp.where(upd, ni, idx)
-            if fold_depth == 2:
-                upd2 = lose_v < vals2
-                vals2 = jnp.where(upd2, lose_v, vals2)
-                idx2 = jnp.where(upd2, lose_i, idx2)
-        if fold_depth == 2:
-            vals = jnp.concatenate([vals, vals2], axis=-1)
-            idx = jnp.concatenate([idx, idx2], axis=-1)
+        qadd = plt.load(qn_ref.at[qids])
+    if scaled:
+        q = q * scales_ref[...][None, :]
+    op_dtype = jnp.float32 if f32_dot else jnp.bfloat16
+    q = q.astype(op_dtype)
+    prec = jax.lax.Precision.HIGHEST if f32_dot else None
 
-    # stage 2: kb sequential min-extractions from the survivors;
-    # per-column writes (static lane index) rather than a lane-vector stack
+    bq = q.shape[0]
+    lane = jax.lax.broadcasted_iota(jnp.int32, (bq, _BS), 1)
+
+    def chunk(c, carry):
+        v1, i1, v2, i2 = carry
+        row0 = start + c * _BS
+        x = plt.load(x_ref.at[pl.ds(row0, _BS), :]).astype(op_dtype)
+        sn = plt.load(sn_ref.at[pl.ds(row0, _BS)]).astype(jnp.float32)
+        dots = pl.dot(q, x, trans_b=True, precision=prec)  # [BQ, BS]
+        sn = sn[None, :]
+        if epilogue == "l2":
+            dist = jnp.maximum(qadd[:, None] + sn - 2.0 * dots, 0.0)
+        elif epilogue == "cos_renorm":
+            dist = 1.0 - (dots + qadd[:, None]) * jax.lax.rsqrt(
+                jnp.maximum(sn, 1e-12)
+            )
+        elif epilogue == "cos_qnorm":
+            dist = 1.0 - dots * qadd[:, None] * jax.lax.rsqrt(
+                jnp.maximum(sn, 1e-12)
+            )
+        else:  # cos_plain: rows pre-normalised
+            dist = 1.0 - dots
+        ni = c * _BS + lane
+        dist = jnp.where(ni < cnt, dist, _BIG)
+        # depth-2 residue-class fold: on clustered data a query's top-k
+        # concentrates in one cell, and a single survivor per class would
+        # lose every pair of top-k rows that collide mod _BS
+        upd = dist < v1
+        lose_v = jnp.where(upd, v1, dist)
+        lose_i = jnp.where(upd, i1, ni)
+        v1 = jnp.where(upd, dist, v1)
+        i1 = jnp.where(upd, ni, i1)
+        upd2 = lose_v < v2
+        v2 = jnp.where(upd2, lose_v, v2)
+        i2 = jnp.where(upd2, lose_i, i2)
+        return v1, i1, v2, i2
+
+    big = jnp.full((bq, _BS), _BIG, jnp.float32)
+    zero = jnp.zeros((bq, _BS), jnp.int32)
+    n_chunks = (cnt + _BS - 1) // _BS
+    v1, i1, v2, i2 = jax.lax.fori_loop(
+        0, n_chunks, chunk, (big, zero, big, zero)
+    )
+
+    # kb min-extractions over the 2·_BS survivors; each row index sits in
+    # at most one survivor slot, so (value, index) identifies it
+    no_idx = jnp.int32(2**30)
     for t in range(kb):
-        v = jnp.min(vals, axis=-1)                        # [maxq]
-        hit = vals == v[:, None]
-        l_of_v = jnp.min(jnp.where(hit, idx, seg), axis=-1)
-        cd_ref[0, t, :] = v
-        ci_ref[0, t, :] = l_of_v
-        vals = jnp.where(hit & (idx == l_of_v[:, None]), _BIG, vals)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("kb", "epilogue", "interpret", "fold_depth", "selection"),
-)
-def _fused_cell_scan(
-    qg,                   # tuple of [R, maxq, d] bf16 mantissa terms
-    qadd: jax.Array,      # [R, 8, maxq] f32 (sublane-replicated)
-    blk_ids: jax.Array,   # [R] int32
-    counts_r: jax.Array,  # [R] int32
-    blocks,               # tuple of [nseg+1, seg, d] cell mantissa terms
-    sn_blocks: jax.Array, # [nseg+1, 8, seg] f32 (sublane-replicated)
-    kb: int,
-    epilogue: str,
-    interpret: bool,
-    fold_depth: int = 2,
-    selection: str = "fold",
-) -> tuple[jax.Array, jax.Array]:
-    R, maxq, d = qg[0].shape
-    seg = blocks[0].shape[1]
-    q_specs = [
-        pl.BlockSpec((1, maxq, d), lambda r, blk, cnt: (r, 0, 0),
-                     memory_space=pltpu.VMEM)
-        for _ in qg
-    ]
-    x_specs = [
-        pl.BlockSpec((1, seg, d), lambda r, blk, cnt: (blk[r], 0, 0),
-                     memory_space=pltpu.VMEM)
-        for _ in blocks
-    ]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(R,),
-        in_specs=q_specs + x_specs + [
-            # [R, 8, maxq] / [nseg+1, 8, seg] sublane-replicated rows
-            pl.BlockSpec((1, 8, maxq), lambda r, blk, cnt: (r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, seg), lambda r, blk, cnt: (blk[r], 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, kb, maxq), lambda r, blk, cnt: (r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, kb, maxq), lambda r, blk, cnt: (r, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
-    kern = functools.partial(
-        _scan_kernel, epilogue=epilogue, kb=kb,
-        nq_t=len(qg), nx_t=len(blocks), fold_depth=fold_depth,
-        selection=selection,
-    )
-    # both selection tiers keep the full [maxq, seg] distance tile plus live
-    # temporaries on the Mosaic stack — at maxq = seg = 1024 that is ~20 MB
-    # (exact: ~22 MB), over the 16 MB default scoped-vmem limit (measured
-    # OOM at 500k×64d np22). Size the limit to the tile: ~6 live f32
-    # [maxq, seg] arrays + double-buffered inputs.
-    need = 6 * maxq * seg * 4 + 4 * (maxq + seg) * d * 2
-    params = {
-        "compiler_params": pltpu.CompilerParams(
-            vmem_limit_bytes=min(max(32 * 2**20, need), 100 * 2**20)
+        m = jnp.minimum(jnp.min(v1, axis=1), jnp.min(v2, axis=1))
+        hit1 = v1 == m[:, None]
+        hit2 = v2 == m[:, None]
+        li = jnp.minimum(
+            jnp.min(jnp.where(hit1, i1, no_idx), axis=1),
+            jnp.min(jnp.where(hit2, i2, no_idx), axis=1),
         )
-    }
-    cd, ci = pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((R, kb, maxq), jnp.float32),
-            jax.ShapeDtypeStruct((R, kb, maxq), jnp.int32),
-        ],
-        interpret=interpret,
-        **params,
-    )(blk_ids, counts_r, *qg, *blocks, qadd, sn_blocks)
-    # back to task-major [R, maxq, kb] for the row-gather epilogue (an XLA
-    # copy of the small output; the kb-major kernel layout exists to keep
-    # HBM tiles full — a [maxq, kb] block puts kb on the lane axis and pads
-    # kb=16 → 128, measured 8× HBM expansion at 500k-scale R)
-    return cd.swapaxes(1, 2), ci.swapaxes(1, 2)
+        cd_ref[:, t] = m
+        ci_ref[:, t] = li
+        v1 = jnp.where(hit1 & (i1 == li[:, None]), _BIG, v1)
+        v2 = jnp.where(hit2 & (i2 == li[:, None]), _BIG, v2)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "k", "metric", "mode", "kb", "interpret", "q_split", "fold_depth",
-        "layout", "groups", "selection",
+        "kb", "epilogue", "residual", "scaled", "f32_dot", "interpret",
     ),
 )
+def _cell_scan(
+    starts: jax.Array,    # [R] int32
+    counts: jax.Array,    # [R] int32
+    lists: jax.Array,     # [R, maxq] int32
+    q: jax.Array,         # [nq+1, d] f32
+    qn: jax.Array,        # [nq+1] f32
+    cent: jax.Array,      # [R, d] f32
+    scales: jax.Array,    # [d] f32
+    storage: jax.Array,   # [n_pad, d]
+    sqnorms: jax.Array,   # [n_pad]
+    *,
+    kb: int,
+    epilogue: str,
+    residual: bool,
+    scaled: bool,
+    f32_dot: bool,
+    interpret: bool = False,
+) -> tuple[jax.Array, jax.Array]:
+    """``[R, maxq, kb]`` (distances ascending, rows within the segment)."""
+    R, maxq = lists.shape
+    d = q.shape[1]
+    bq = min(_BQ, maxq)
+    whole = pl.BlockSpec(memory_space=None)
+    kern = functools.partial(
+        _scan_kernel, epilogue=epilogue, residual=residual, scaled=scaled,
+        f32_dot=f32_dot, kb=kb,
+    )
+    return pl.pallas_call(
+        kern,
+        grid=(R, pl.cdiv(maxq, bq)),
+        in_specs=[
+            whole,
+            whole,
+            pl.BlockSpec((None, bq), lambda r, b: (r, b)),
+            whole,
+            whole,
+            pl.BlockSpec((None, d), lambda r, b: (r, 0)),
+            whole,
+            whole,
+            whole,
+        ],
+        out_specs=[
+            pl.BlockSpec((None, bq, kb), lambda r, b: (r, b, 0)),
+            pl.BlockSpec((None, bq, kb), lambda r, b: (r, b, 0)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct((R, maxq, kb), jnp.float32),
+            jax.ShapeDtypeStruct((R, maxq, kb), jnp.int32),
+        ],
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=_NUM_STAGES
+        ),
+        interpret=interpret,
+        name="ivf_cell_scan",
+    )(starts, counts, lists, q, qn, cent, scales, storage, sqnorms)
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("k", "metric", "mode", "kb", "q_split", "groups",
+                     "interpret"),
+)
 def fused_ivf_scan(
-    queries: jax.Array,       # [nq, d] f32 effective queries
+    queries: jax.Array,       # [nq, d] f32 (int8 for sq8) effective queries
     cluster_ids: jax.Array,   # [R] int segment ids (pad = nseg)
     probe_lists: jax.Array,   # [R, maxq] int query ids (pad = nq)
     gather_map: jax.Array,    # [nq, T] int32 flat scan lanes (pad = -1)
-    blocks: jax.Array,        # [nseg+1, seg, d] repacked cells
-    sn_blocks: jax.Array,     # [nseg+1, seg] f32
-    seg_offsets: jax.Array,   # [nseg] int32 (maps lanes back to sorted rows)
+    storage: jax.Array,       # [n_pad, d] cluster-sorted cells
+    sqnorms: jax.Array,       # [n_pad] row norms in the scoring space
+    seg_offsets: jax.Array,   # [nseg] int32 first row of each segment
     seg_counts: jax.Array,    # [nseg] int32
     seg_centroids: jax.Array, # [nseg, d] f32 (scoring space)
     k: int,
@@ -359,143 +257,72 @@ def fused_ivf_scan(
     mode: str,
     scales: jax.Array | None, # [d] f32 decode scales (i8dec modes)
     kb: int,
-    interpret: bool = False,
     q_split: bool = True,
-    fold_depth: int = 2,
-    layout: str = "plain",
     groups: int = 1,
-    selection: str = "fold",
+    interpret: bool = False,
 ) -> tuple[jax.Array, jax.Array]:
     """Fused-kernel replacement for ``ivf_cluster_scan`` (approx selection).
 
-    ``layout="packed2"`` (f32 mode, 2·d ≤ 128, cells repacked with
-    ``repack_blocks(lane_pack=True)``): the hi/lo mantissa terms of queries
-    and cells share one 128-lane contraction — all four cross terms in one
-    or two matmul passes instead of three lane-padded ones.
+    Scoring precision: ``f32`` cells take an f32 product (IEEE, as the XLA
+    scan's HIGHEST); bf16 / int8 cells take one bf16 pass (their values are
+    exact in bf16) with the queries rounded to bf16, except that
+    ``q_split=True`` keeps i8dec queries in f32 as well.
 
     ``groups > 1`` splits each query's ``T`` task lanes into ``groups``
     equal runs (T must divide) and takes an independent top-k per run —
-    the forest path's per-tree merge: a narrow per-group sort replaces one
-    very wide global selection whose width would otherwise grow with the
-    group count. Output is then ``[nq, groups·k]``, group-major.
+    the forest path's per-tree merge. Output is then ``[nq, groups·k]``,
+    group-major.
 
     Returns ``(best_d, best_i)`` of shape ``[nq, k]`` ascending (or
     ``[nq, groups·k]``), with ``best_i`` positions in the sorted storage.
     """
     nq, d = queries.shape
     nseg = seg_offsets.shape[0]
-    R, maxq = probe_lists.shape
 
-    queries_x = jnp.concatenate([queries, jnp.zeros((1, d), queries.dtype)])
-    cent_x = jnp.concatenate(
-        [seg_centroids, jnp.zeros((1, d), seg_centroids.dtype)]
-    )
-    offs_x = jnp.concatenate(
-        [seg_offsets.astype(jnp.int32), jnp.zeros((1,), jnp.int32)]
-    )
-    cnts_x = jnp.concatenate(
-        [seg_counts.astype(jnp.int32), jnp.zeros((1,), jnp.int32)]
-    )
+    def ext(a, fill=0):
+        return jnp.concatenate([a, jnp.full((1,) + a.shape[1:], fill, a.dtype)])
 
+    qf = ext(queries.astype(jnp.float32))                      # [nq+1, d]
+    offs_x = ext(seg_offsets.astype(jnp.int32))
+    cnts_x = ext(seg_counts.astype(jnp.int32))
     cid = jnp.minimum(cluster_ids.astype(jnp.int32), nseg)     # [R]
-    qid = jnp.minimum(probe_lists.astype(jnp.int32), nq)       # [R, maxq]
-    qg = queries_x[qid]                                        # [R, maxq, d]
-    cent = cent_x[cid]                                         # [R, d]
+    lists = jnp.minimum(probe_lists.astype(jnp.int32), nq)     # [R, maxq]
+    starts = offs_x[cid]
 
-    if mode == "i8dec_residual":
-        if metric == Dist.COSINE:
-            qadd = jnp.einsum("rmd,rd->rm", qg, cent)
-            qk = qg * scales[None, None, :]
-            epilogue = "cos_renorm"
-        else:
-            qr = qg - cent[:, None, :]
-            qadd = jnp.sum(qr * qr, axis=-1)
-            qk = qr * scales[None, None, :]
-            epilogue = "l2"
-    elif mode == "i8dec":
-        qk = qg * scales[None, None, :]
-        if metric == Dist.COSINE:
-            qadd = jnp.zeros((R, maxq), jnp.float32)
-            epilogue = "cos_renorm"
-        else:
-            qadd = jnp.sum(qg * qg, axis=-1)
-            epilogue = "l2"
+    residual = mode == "i8dec_residual"
+    scaled = mode in ("i8dec", "i8dec_residual")
+    q_sq = jnp.sum(qf * qf, axis=-1)
+    if mode.startswith("i8dec"):
+        epilogue = "cos_renorm" if metric == Dist.COSINE else "l2"
+        qn = jnp.zeros_like(q_sq) if metric == Dist.COSINE else q_sq
     elif mode == "sq8":
-        # int8 codes are exact in bf16, and products (≤127²) accumulate
-        # exactly in f32 — the fused matmul reproduces the XLA scan's
-        # integer-space distances bit-for-bit
-        qf = qg.astype(jnp.float32)
-        qk = qf
-        q_sq = jnp.sum(qf * qf, axis=-1)
+        # integer-space cosine: qn carries 1/‖q‖ (0 for a zero query)
         if metric == Dist.COSINE:
-            qadd = jnp.where(
+            qn = jnp.where(
                 q_sq > 0, jax.lax.rsqrt(jnp.maximum(q_sq, 1e-12)), 0.0
             )
             epilogue = "cos_qnorm"
         else:
-            qadd = q_sq
-            epilogue = "l2"
+            qn, epilogue = q_sq, "l2"
     else:  # f32 / bf16 dense rows
-        qk = qg
-        if metric == Dist.COSINE:
-            qadd = jnp.zeros((R, maxq), jnp.float32)
-            epilogue = "cos_plain"
-        else:
-            qadd = sq_norms(qg.reshape(-1, d)).reshape(R, maxq)
-            epilogue = "l2"
-
-    if layout == "packed2":
-        # lane-tiled cells [x₀|x₁|x₀|x₁|…]: query blocks pair as
-        # [q₀|q₀|q₁|q₁|0…] so the contraction sums q₀x₀+q₀x₁+q₁x₀+q₁x₁ —
-        # all four mantissa cross terms, one pass when 4·d ≤ 128, two
-        # passes ([q₀|q₀], [q₁|q₁]) at d ≤ 64
-        qp = mantissa_split(qk, 2)
-        dq = qk.shape[-1]
-        rep = _LANES // (2 * dq)
-        if rep >= 2:
-            zs = [jnp.zeros_like(qp[0])] * (2 * (rep - 2))
-            qk_t = (_pad_lanes(
-                jnp.concatenate([qp[0], qp[0], qp[1], qp[1]] + zs, axis=-1),
-                _LANES,
-            ),)
-        else:
-            qk_t = (
-                _pad_lanes(jnp.concatenate([qp[0], qp[0]], -1), _LANES),
-                _pad_lanes(jnp.concatenate([qp[1], qp[1]], -1), _LANES),
-            )
-    elif len(blocks) == 2:
-        # f32 cells travel as hi/lo bf16; split the queries to match
-        # (3-pass ≈ Precision.HIGH — the fused tier is approximate anyway)
-        qk_t = mantissa_split(qk, 2)
-    elif q_split and mode in ("i8dec", "i8dec_residual"):
-        # int8 cells are exact in bf16 but the scaled queries are
-        # continuous: a single bf16 pass costs ~2⁻⁹ relative on the dots,
-        # which measurably drops tail-rank recall on clustered data. The
-        # hi/lo query split (2 passes vs 1) restores XLA-scan parity.
-        qk_t = mantissa_split(qk, 2)
-    elif mode == "bf16" and selection == "exact":
-        # bf16 exact tier: hi/lo query split × exact-in-bf16 rows gives
-        # f32-grade scoring (8-bit×8-bit products are exact in f32), so
-        # per-segment selection carries no query-rounding rank flips —
-        # the pool for _exact_rescore is as tight as the f32 tier's
-        qk_t = mantissa_split(qk, 2)
-    else:
-        qk_t = (qk.astype(jnp.bfloat16),)
-    if layout != "packed2" and qk_t[0].shape[-1] != blocks[0].shape[-1]:
-        # blocks were zero-padded to full lanes in repack_blocks — pad the
-        # query terms to match (zero lanes contribute nothing to the dots)
-        qk_t = tuple(_pad_lanes(t, blocks[0].shape[-1]) for t in qk_t)
-    qadd_rep = jnp.broadcast_to(
-        qadd.astype(jnp.float32)[:, None, :], (R, 8, maxq)
+        epilogue = "cos_plain" if metric == Dist.COSINE else "l2"
+        qn = q_sq
+    cent = (
+        ext(seg_centroids.astype(jnp.float32))[cid]
+        if residual else jnp.zeros((cid.shape[0], d), jnp.float32)
     )
-    cd, ci = _fused_cell_scan(
-        qk_t, qadd_rep,
-        cid, cnts_x[cid], blocks, sn_blocks, kb, epilogue, interpret,
-        fold_depth=fold_depth, selection=selection,
+    sc = (
+        scales.astype(jnp.float32) if scaled
+        else jnp.ones((d,), jnp.float32)
     )
-    # lane → sorted-storage row (sentinel lane ``seg`` lands in the padded
-    # trailing rows — storage carries ≥ seg_size pad, matching the XLA scan)
-    gi = offs_x[cid][:, None, None] + ci
+    f32_dot = mode == "f32" or (q_split and scaled)
+    cd, ci = _cell_scan(
+        starts, cnts_x[cid], lists, qf, qn, cent, sc, storage, sqnorms,
+        kb=kb, epilogue=epilogue, residual=residual, scaled=scaled,
+        f32_dot=f32_dot, interpret=interpret,
+    )
+    cd = jnp.where(cd >= _BIG, jnp.inf, cd)
+    gi = starts[:, None, None] + ci                            # storage rows
 
     flat_d = cd.reshape(-1, kb)
     flat_i = gi.reshape(-1, kb)
@@ -505,9 +332,9 @@ def fused_ivf_scan(
     gd = jnp.take(
         flat_d, gm, axis=0, mode="fill", fill_value=float("inf")
     ).reshape(nq, -1)
-    gi2 = jnp.take(
-        flat_i, gm, axis=0, mode="fill", fill_value=0
-    ).reshape(nq, -1)
+    gi2 = jnp.take(flat_i, gm, axis=0, mode="fill", fill_value=0).reshape(
+        nq, -1
+    )
     if groups > 1:
         gd = gd.reshape(nq * groups, -1)
         gi2 = gi2.reshape(nq * groups, -1)

@@ -2,8 +2,7 @@
 
 The host-built task lists (``ops/ivf_scan.build_probe_lists_from_pairs``)
 force a mid-query synchronisation: route on device → read probes back →
-invert on host → upload padded lists. On a tunnelled or busy host link that
-round-trip dominates end-to-end latency. This module performs the same
+invert on host → upload padded lists. This module performs the same
 inversion with jnp ops on device — the whole query (route → invert → fused
 scan) becomes one async dispatch chain.
 
@@ -30,9 +29,6 @@ __all__ = [
     "device_probe_shapes",
     "expand_probes_device",
     "build_probe_lists_device",
-    "route_pair_stats",
-    "compact_probe_shapes",
-    "build_probe_lists_compact",
 ]
 
 
@@ -45,12 +41,12 @@ def device_probe_shapes(
 ) -> tuple[int, int]:
     """Static ``(maxq, R)`` for the device-built lists.
 
-    Total kernel work scales with ``R·maxq`` slots (= tasks + padding):
-    padding ≈ ``nseg·maxq`` (each active segment holds ≤1 partial chunk
-    row), so a *small* maxq minimises waste; the floor keeps per-row
-    matmuls MXU-shaped. ``R`` is a multiple of 64, not a power of two —
-    these shapes derive from static (nq, nprobe, nseg), so recompiles are
-    already bounded."""
+    Total kernel work scales with ``R·maxq`` slots (= tasks + padding): padding
+    ≈ ``nseg·maxq`` (each active segment holds ≤1 partial chunk row), so a
+    *small* maxq minimises waste; the floor keeps per-row matmuls
+    tensor-core-shaped. ``R`` is a multiple of 64, not a power of two — these
+    shapes derive from static (nq, nprobe, nseg), so recompiles are already
+    bounded."""
     total = nq * nprobe * s_max
     mean = max(1, (nq * nprobe) // max(nseg, 1))
     maxq = min(_next_pow2(-(-mean // 2)), 1024, _next_pow2(nq))
@@ -117,124 +113,5 @@ def build_probe_lists_device(
     lanes = rows * maxq + cols
     gather_map = (
         jnp.zeros((n_pairs,), jnp.int32).at[order].set(lanes).reshape(nq, T)
-    )
-    return cluster_ids, lists, gather_map
-
-
-# ---------------------------------------------------------------------------
-# compact (query, segment) pair expansion — skew-proof s_max > 1 handling
-# ---------------------------------------------------------------------------
-#
-# The dense expansion above allocates nq·nprobe·s_max slots; on skewed data
-# (lowrank 500k×64d at nlist 500: cells med 19 / max 19,993 → s_max 20) that
-# is 22M slots, of which ~90% are sentinels — the gathered query blocks alone
-# exceeded HBM (measured 33.5 GB). The compact path materialises exactly the
-# real (query, segment) pairs: run-length expansion by prefix sums, with the
-# static bound P read back from a 2-scalar routing-stats dispatch (the data
-# never leaves the device; only the pair count does).
-
-
-@functools.partial(jax.jit, static_argnames=())
-def route_pair_stats(
-    probes: jax.Array,       # [nq, nprobe] int cluster ids
-    cluster_ptr: jax.Array,  # [nlist+1] int32 segment CSR
-) -> jax.Array:
-    """[2] int32: (total real (query, segment) pairs, max pairs per query)."""
-    ptr = cluster_ptr.astype(jnp.int32)
-    c = probes.astype(jnp.int32)
-    cnt = ptr[c + 1] - ptr[c]                       # [nq, np] segs per probe
-    qcnt = jnp.sum(cnt, axis=1)                     # [nq]
-    return jnp.stack([jnp.sum(qcnt), jnp.max(qcnt)]).astype(jnp.int32)
-
-
-def compact_probe_shapes(
-    total: int, qmax: int, nseg: int
-) -> tuple[int, int, int, int]:
-    """Static ``(P, T_g, maxq, R)`` from the routing stats (pow2-bucketed to
-    bound recompiles)."""
-    P = _next_pow2(int(total) + 1)
-    T_g = _next_pow2(max(int(qmax), 1))
-    mean = max(1, int(total) // max(nseg, 1))
-    maxq = min(_next_pow2(-(-mean // 2)), 1024)
-    maxq = max(maxq, 32)
-    rows = -(-int(total) // maxq) + nseg + 3
-    R = -(-rows // 64) * 64
-    return P, T_g, maxq, R
-
-
-@functools.partial(
-    jax.jit, static_argnames=("P", "T_g", "nseg", "maxq", "R")
-)
-def build_probe_lists_compact(
-    probes: jax.Array,       # [nq, nprobe] int cluster ids
-    cluster_ptr: jax.Array,  # [nlist+1] int32 segment CSR
-    P: int,                  # static pair bound (≥ total + 1)
-    T_g: int,                # static per-query gather width (≥ max qcnt)
-    nseg: int,
-    maxq: int,
-    R: int,
-) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """Expand cluster probes to real (query, segment) pairs and invert to
-    per-row query lists, all on device. Returns ``(cluster_ids [R],
-    lists [R, maxq], gather_map [nq, T_g])`` with gather_map padded -1."""
-    nq, np_ = probes.shape
-    m = nq * np_
-    ptr = cluster_ptr.astype(jnp.int32)
-    c = probes.reshape(-1).astype(jnp.int32)
-    first = ptr[c]
-    cnt = ptr[c + 1] - first                            # [m] run lengths
-    ends = jnp.cumsum(cnt)
-    starts = (ends - cnt).astype(jnp.int32)
-    total = ends[-1]
-
-    # run-length expansion: slot p belongs to the last run starting ≤ p
-    # (zero-length runs share a start with the next run and are skipped by
-    # the accumulated mark)
-    mark = jnp.zeros((P,), jnp.int32).at[starts].add(1, mode="drop")
-    run = jnp.minimum(jnp.cumsum(mark) - 1, m - 1)      # [P] pair index
-    pos = jnp.arange(P, dtype=jnp.int32)
-    valid = pos < total
-    seg = jnp.where(valid, first[run] + (pos - starts[run]), nseg)
-    q = jnp.where(valid, (run // np_).astype(jnp.int32), nq)
-
-    # invert: sort pairs by segment, chunk each segment's query list into
-    # rows of maxq (sentinel pairs sort last and are forced to row R-1)
-    order = jnp.argsort(seg, stable=True)
-    cs = seg[order]
-    qs = q[order]
-    counts = jnp.bincount(seg, length=nseg + 1).astype(jnp.int32)
-    seg_starts = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(counts)[:-1].astype(jnp.int32)]
-    )
-    rank = pos - seg_starts[cs]
-    nchunks = jnp.where(
-        jnp.arange(nseg + 1) < nseg, -(-counts // maxq), 0
-    )
-    row_base = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(nchunks)[:-1].astype(jnp.int32)]
-    )
-    rows = jnp.where(
-        cs < nseg,
-        jnp.minimum(row_base[cs] + rank // maxq, R - 1),
-        R - 1,
-    )
-    cols = rank % maxq
-    lists = jnp.full((R, maxq), nq, jnp.int32).at[rows, cols].set(qs)
-    cluster_ids = (
-        jnp.full((R,), nseg, jnp.int32)
-        .at[rows].set(jnp.where(cs < nseg, cs, nseg))
-    )
-
-    # per-query gather map in ORIGINAL pair order (pairs are query-major)
-    lanes_sorted = rows * maxq + cols
-    lanes = jnp.zeros((P,), jnp.int32).at[order].set(lanes_sorted)
-    qcnt = jnp.sum(cnt.reshape(nq, np_), axis=1)
-    qstart = jnp.concatenate(
-        [jnp.zeros(1, jnp.int32), jnp.cumsum(qcnt)[:-1].astype(jnp.int32)]
-    )
-    pos_in_q = jnp.where(valid, pos - qstart[jnp.minimum(run // np_, nq - 1)], 0)
-    gather_map = (
-        jnp.full((nq, T_g), -1, jnp.int32)
-        .at[q, pos_in_q].set(lanes, mode="drop")
     )
     return cluster_ids, lists, gather_map

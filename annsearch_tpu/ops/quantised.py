@@ -2,18 +2,19 @@
 
 Replaces the reference's quantised SIMD kernels (``utils/dist.rs`` —
 ``euclidean_bf16_simd`` :2376-4010, ``VectorDistanceSq8`` :4228-4324,
-``VectorDistanceAdc`` :4333-4495) with MXU matmul scans:
+``VectorDistanceAdc`` :4333-4495) with tensor-core matmul scans:
 
-  * bf16  — the MXU's native dtype; dot in bf16, accumulate f32.
+  * bf16  — the tensor cores' native dtype; dot in bf16, accumulate f32.
   * SQ8   — int8×int8→int32 matmul; distances in quantised integer space
             (exact reference semantics: scales ignored at query time).
   * PQ    — **decode-by-one-hot-matmul**: instead of the reference's ADC
-            LUT-gather scan (dist.rs:4447, unrolled u8 gathers — fast on
-            CPU, pathological on TPU), each code tile is decoded on the fly
-            with per-subspace one-hot × codebook matmuls and scored with a
-            dense distance matmul. Mathematically identical to ADC
+            LUT-gather scan (dist.rs:4447, unrolled u8 gathers — fast on CPU,
+            scattered reads on an accelerator), each code tile is decoded on
+            the fly with per-subspace one-hot × codebook matmuls and scored
+            with a dense distance matmul. Mathematically identical to ADC
             (d(q, x̂) over the same reconstruction x̂); decode FLOPs are
-            ~256/bq of the scoring matmul, so the MXU stays saturated.
+            ~256/bq of the scoring matmul, so the tensor cores stay
+            saturated.
 
 All kernels stream DB tiles with the same running top-k carry as
 ``ops/topk.py``.
@@ -140,14 +141,13 @@ def chunked_topk_sq8(
 
 def pq_decode_tile(codes_tile: jax.Array, codebooks: jax.Array) -> jax.Array:
     """Decode a ``[t, m]`` uint8 code tile to ``[t, d]`` via a batched
-    one-hot × codebook einsum (the MXU replacement for LUT gathers).
-
-    Measured on v5e: the batched einsum beats a per-subspace matmul loop 4×
-    (XLA fuses the one-hot into the contraction; m separate [t,256]×[256,ds]
-    matmuls each underutilise the MXU at ds-wide outputs)."""
+    one-hot × codebook einsum (a matrix-unit replacement for LUT gathers:
+    XLA fuses the one-hot into one batched contraction instead of m
+    separate [t,256]×[256,ds] products)."""
     t, m = codes_tile.shape
-    # XLA:CPU cannot execute batched bf16×bf16→f32 dots (DotThunk limit);
-    # bf16 operands only on accelerator backends
+    # XLA:CPU lowers this batched contraction to a DotThunk with no
+    # BF16×BF16→F32 kernel at narrow subspace widths ("Unsupported element
+    # type for DotThunk::Execute"), so the CPU keeps f32 operands
     dt = jnp.float32 if jax.default_backend() == "cpu" else jnp.bfloat16
     oh = jax.nn.one_hot(codes_tile.astype(jnp.int32), 256, dtype=dt)
     dec = jnp.einsum(

@@ -1,14 +1,14 @@
 """Running top-k over database tiles.
 
-TPU-native replacement for the reference's per-query heaps
+JAX replacement for the reference's per-query heaps
 (``src/utils/heap_structs.rs`` — ``BinaryHeap`` / ``SortedBuffer``) and its GPU
 top-k kernels (``src/gpu/dist_gpu.rs:245-512`` — ``extract_topk`` /
 ``extract_topk_coalesced``): instead of sequential insertion per thread we
-scan the database in MXU-sized tiles and carry a running ``[bq, k]``
+scan the database in tensor-core-sized tiles and carry a running ``[bq, k]``
 (distance, index) state, merging each tile's local top-k with ``lax.top_k``.
 This is the reference's ``query_batch_gpu`` streaming design
 (dist_gpu.rs:533-705) expressed as a ``lax.scan`` so XLA fuses the distance
-matmul and keeps the carry in registers/VMEM.
+matmul and keeps the carry on chip.
 
 All top-k results are sorted ascending by distance (reference semantics:
 sorted output, ``k = min(k, n)`` clamp done by callers).
@@ -33,10 +33,10 @@ __all__ = [
     "DEFAULT_QUERY_BLOCK",
 ]
 
-# Tile sizes tuned for MXU/VMEM occupancy (the reference GPU layer uses
-# QUERY_CHUNK_SIZE=8192 / DB_CHUNK_SIZE=16384, gpu/mod.rs:17-21; on TPU we
-# keep the distance tile [query_block, db_chunk] small enough for VMEM but
-# wide enough to saturate the MXU).
+# Tile sizes (the reference GPU layer uses QUERY_CHUNK_SIZE=8192 /
+# DB_CHUNK_SIZE=16384, gpu/mod.rs:17-21): the distance tile
+# [query_block, db_chunk] stays bounded in memory but wide enough to keep
+# the matrix units busy. Not yet tuned on the GPU.
 DEFAULT_DB_CHUNK = 16384
 DEFAULT_QUERY_BLOCK = 1024
 
@@ -96,8 +96,8 @@ def chunked_topk(
       x_sqnorm: optional precomputed squared norms of ``x`` (euclidean only).
       n_valid: number of valid database rows (rows ≥ n_valid are padding).
       db_chunk: database tile size for the scan.
-      approx: use ``lax.approx_min_k`` for the per-tile selection (faster on
-        TPU, slightly lossy — never used for ground-truth paths).
+      approx: use ``lax.approx_min_k`` for the per-tile selection (slightly
+        lossy — never used for ground-truth paths).
 
     Returns:
       ``(dists [bq, k], indices [bq, k])`` ascending by distance.
@@ -171,7 +171,7 @@ def chunked_topk_bins(
 
     Approximation: a true top-k entry is lost only when ≥3 of the true
     top-k share one bin — probability ~ (k choose 3)/bins² (≈1e-5 at k=15,
-    bins=4096). This is the partial-reduce idea behind TPU approx_min_k,
+    bins=4096). This is the partial-reduce idea behind ``lax.approx_min_k``,
     applied *across* DB tiles so the whole scan is matmul + elementwise.
     """
     n = x.shape[0]
@@ -248,36 +248,10 @@ def blocked_query_topk(
 
     Streams query blocks through :func:`chunked_topk` (``lax.map`` — one
     compiled program reused per block) so ``[nq, n]`` is never materialised;
-    this is the TPU analogue of the reference's query-chunk × db-chunk double
-    loop (dist_gpu.rs:550-685). ``selector="bins"`` swaps in the
-    selection-free running-bins scan; ``selector="fused"`` runs the Pallas
-    flat-scan kernel (bins state held in VMEM — no HBM carry spill; same
-    ~1e-5 tail loss as "bins").
+    this is the batched analogue of the reference's query-chunk × db-chunk
+    double loop (dist_gpu.rs:550-685). ``selector="bins"`` swaps in the
+    selection-free running-bins scan.
     """
-    if selector == "fused" and k > 64:
-        # the fused kernel extracts minima with a fully UNROLLED kb-column
-        # loop (flat_scan_pallas._flat_kernel): kb = 128 blew Mosaic compile
-        # time past 25 minutes (measured: vamana r64's kk+1 = 65 → kb = 128
-        # base scan never finished compiling), and ranks beyond 128 would
-        # silently come back as sentinels anyway. Wide-k requests ride the
-        # selection-free running-bins scan instead (same ~1e-5 tail loss,
-        # ordinary XLA compile times).
-        selector = "bins"
-    if selector == "fused":
-        from .flat_scan_pallas import flat_topk_fused
-
-        if precision == jax.lax.Precision.HIGHEST:
-            passes = 6
-        elif precision == jax.lax.Precision.HIGH:
-            passes = 3
-        else:
-            passes = 1
-        # lane padding/packing of the contraction dim happens inside
-        # flat_topk_fused (small dims pack split parts into one matmul)
-        return flat_topk_fused(
-            q, x, k, metric, x_sqnorm=x_sqnorm, n_valid=n_valid,
-            passes=passes, interpret=jax.default_backend() != "tpu",
-        )
     nq = q.shape[0]
     qb = min(query_block, max(nq, 8))
     qp = _pad_rows(q, qb)

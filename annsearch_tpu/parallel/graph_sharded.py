@@ -1,34 +1,34 @@
 """Multi-chip CAGRA-style graph index: sharded build + sharded beam query.
 
-BASELINE config 5 ("CAGRA-style graph, 10M vectors sharded over a v5e-8
+BASELINE config 5 ("CAGRA-style graph, 10M vectors sharded over a
 mesh") — new surface vs the reference, whose graph machinery is
 single-device (``src/gpu/nndescent_gpu.rs:1381-1875`` build loop,
 ``src/gpu/cagra_gpu_search.rs:818-944`` batched search). Distributed per
 SURVEY §7 step 7, but *not* by translating those loops: random cross-shard
-gathers are the one shape TPU SPMD punishes, so the design keeps every
+gathers are the one shape SPMD programs punish, so the design keeps every
 build round and every beam iteration shard-local and moves data only in
 dense, schedulable blocks:
 
   * **build** — the database is row-sharded over a 1-D ``db`` mesh; every
     device builds an independent CAGRA sub-graph over its own rows with the
-    single-chip batched-round kernels (``ops/graph``: brute MXU scan below
+    single-chip batched-round kernels (``ops/graph``: brute tensor-core scan below
     the per-shard FLOP budget, else RP-forest + NN-descent rounds) under
     one ``shard_map``. No collective at all — construction is
     embarrassingly parallel, the same economics that make the reference's
     locked concurrent inserts unnecessary on one chip.
   * **query** — queries are replicated; each device beam-searches its local
     sub-graph (local routed entries, local sorted beam), local ids are
-    offset to global, and one ``all_gather`` + log-merge top-k over ICI
+    offset to global, and one ``all_gather`` + log-merge top-k over NVLink
     combines the per-shard candidates. Searching P sub-graphs of n/P rows
     costs ~the same wall-clock as one n-row search (each walk is shorter)
     and needs no cross-shard frontier traffic at all.
   * **self-kNN / graph extraction** — the only phase that genuinely needs
     cross-shard pairs. Blocks of vectors ride a **ring** (``ppermute``):
     at step s each device scores the visiting block against its shard
-    (exact MXU scan below budget, else a beam search of its sub-graph) and
+    (exact tensor-core scan below budget, else a beam search of its sub-graph) and
     the block's running top-k merges as it travels; after P hops every
     block returns home with its global kNN rows. Collectives are P
-    neighbour-to-neighbour block passes over ICI — the "ring scan" of
+    neighbour-to-neighbour block passes over NVLink — the "ring scan" of
     SURVEY §5/§7 — instead of an n×d all-gather.
 """
 
@@ -83,7 +83,7 @@ def ring_self_knn(
 
     Each device keeps its shard resident and a *visiting* copy of one other
     shard; at every step it scores the visiting block's rows against its
-    own rows (blocked MXU scan), merges into the block's travelling top-k,
+    own rows (blocked tensor-core scan), merges into the block's travelling top-k,
     and ``ppermute``s block + state to the next device. After P steps each
     block has seen the whole database; outputs come home row-sharded.
     Self-pairs are masked by global id. Distances are f32-grade (HIGHEST).

@@ -5,7 +5,7 @@ row-sharded over a 1-D mesh and both phases run SPMD:
 
   * **build** — Lloyd iterations under ``shard_map``: every device assigns
     its rows to the replicated centroids (local GEMM argmin), computes
-    partial ``segment_sum`` sums/counts, and one ``psum`` over ICI yields
+    partial ``segment_sum`` sums/counts, and one ``psum`` over NVLink yields
     identical updated centroids everywhere. This is the k-means engine
     (``models/kmeans.py``) distributed the way the scaling-book recipe
     says: shard data, replicate parameters, let the collective do the sum.
@@ -14,7 +14,7 @@ row-sharded over a 1-D mesh and both phases run SPMD:
     *local* cells; per-shard top-k results are ``all_gather``-ed and
     log-merged. Cells exist per shard (each device clusters only its rows),
     so no cross-device data movement happens during the scan — only the
-    [nq, k] merge rides ICI.
+    [nq, k] merge rides NVLink.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
 """Device mesh helpers.
 
 The reference is single-process (SURVEY §2.7: no NCCL/MPI); its scaling story
-is rayon threads + one GPU. The TPU rebuild's multi-chip story is a 1-D data
+is rayon threads + one GPU. This rebuild's multi-card story is a 1-D data
 mesh: the vector database is sharded row-wise over devices, queries are
 replicated (or batch-sharded), and per-shard top-k results are merged with an
-``all_gather`` over ICI.
+``all_gather`` over NVLink.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def make_mesh(n_devices: int | None = None, axis: str = DB_AXIS) -> Mesh:
 def make_mesh2d(n_batch: int, n_db: int) -> Mesh:
     """2-D ``(batch, db)`` mesh: query batches shard over ``batch`` (pure
     data parallelism, no collective), database rows over ``db`` (the top-k
-    merge all_gather rides only this axis — lay it along ICI)."""
+    merge all_gather rides only this axis)."""
     devices = jax.devices()[: n_batch * n_db]
     if len(devices) < n_batch * n_db:
         raise ValueError(

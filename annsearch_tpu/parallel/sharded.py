@@ -3,7 +3,7 @@
 New surface vs the reference (which has no distributed backend, SURVEY §2.7):
 each device scans its database shard with the same blocked distance+top-k
 kernel used single-chip, local indices are offset to global ids, and the
-per-shard candidate sets are merged with one ``all_gather`` over ICI followed
+per-shard candidate sets are merged with one ``all_gather`` over NVLink followed
 by a log-merge top-k. This is the "ring top-k distance scan" analogue of the
 reference's DB-chunk streaming (dist_gpu.rs:550-685) lifted across chips.
 """

@@ -15,7 +15,7 @@ targets in BASELINE.md are defined against these:
 
 Queries are noisy subsamples (``subsample_with_noise``, σ=0.05,
 commons/mod.rs:701-733). Host-side numpy: data generation is input plumbing,
-not a TPU hot path.
+not an accelerator hot path.
 """
 
 from __future__ import annotations

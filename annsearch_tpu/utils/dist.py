@@ -1,9 +1,9 @@
 """Distance metric plumbing.
 
-TPU-native replacement for the reference's SIMD distance layer
+JAX replacement for the reference's SIMD distance layer
 (ann-search-rs ``src/utils/dist.rs``): instead of runtime-dispatched
 scalar/SSE/AVX kernels, every distance in this framework funnels into a single
-MXU matmul identity
+tensor-core matmul identity
 
     euclidean²(q, x) = ‖q‖² + ‖x‖² − 2 q·x
     cosine(q, x)     = 1 − q·x / (‖q‖‖x‖)
@@ -64,12 +64,11 @@ def mantissa_split(x: jax.Array, parts: int) -> tuple[jax.Array, ...]:
     top 8 mantissa bits, ``terms[1]`` the next 7, …
 
     The head terms are built by INTEGER mantissa masking (bitcast → zero the
-    low 16 bits → bitcast), not ``astype(bfloat16)`` rounding. XLA:TPU
+    low 16 bits → bitcast), not ``astype(bfloat16)`` rounding. XLA
     compiles with excess-precision allowances that may keep a value rounded
     to bf16 at f32 precision, which silently folds the residual
     ``x − hi`` to ~0 and degrades a multi-pass split to single-pass
-    accuracy (measured: identical error for 1/3/6-pass splits until the
-    mask was introduced). Integer ops cannot be elided, so the residual is
+    accuracy. Integer ops cannot be elided, so the residual is
     exact; the masked value has a zeroed low mantissa and converts to bf16
     exactly.
     """
@@ -109,7 +108,7 @@ def normalise(x: jax.Array, eps: float = 1e-30) -> jax.Array:
 
 
 def _matmul(q: jax.Array, x: jax.Array, precision) -> jax.Array:
-    """Q · Xᵀ on the MXU with f32 accumulation."""
+    """Q · Xᵀ on the tensor cores with f32 accumulation."""
     return jax.lax.dot_general(
         q,
         x,

@@ -234,15 +234,14 @@ def test_fast_hamming_scan_matches_packed_kernel(rng):
     np.testing.assert_array_equal(i_f, i_s)
 
 
-def test_ivf_binary_fused_hamming_matches_xla_scan(rng):
+def test_ivf_binary_fused_hamming_matches_xla_scan(rng, fused_kernel):
     """fast_scan IVF hamming (fused kernel over ±1 blocks, single dispatch)
     must reproduce the XLA packed-scan tier: same ids, same hamming values."""
     x, _ = generate_clustered_data(4000, 32, 8, seed=9)
     q = subsample_with_noise(x, 200, seed=9)
     fast = IvfIndexBinary(x, nlist=25, n_bits=256, seed=0, fast_scan=True)
     slow = IvfIndexBinary(x, nlist=25, n_bits=256, seed=0, fast_scan=False)
-    if not fast._fused_hamming_ok(10):
-        pytest.skip("layout not fused-eligible on this build")
+    assert fast._fused_hamming_ok(10)
     i_f, d_f = fast.query(q, 10, nprobe=25, exact_fallback=False)
     i_s, d_s = slow.query(q, 10, nprobe=25, exact_fallback=False)
     np.testing.assert_array_equal(i_f, i_s)
@@ -284,7 +283,7 @@ def test_ivf_binary_cosine_hamming_tier(rng):
     assert calculate_recall(ti, i, 10) > 0.85
 
 
-def test_ivf_binary_large_rerank_pool_takes_exact_scan(rng):
+def test_ivf_binary_large_rerank_pool_takes_exact_scan(rng, fused_kernel):
     """k_scan = k·rerank_factor above the fused engine's per-cell
     extraction capacity (128) must route to the exact XLA cell scan:
     the depth-2 fold keeps ≤2 survivors per lane-residue class per cell,
@@ -294,9 +293,9 @@ def test_ivf_binary_large_rerank_pool_takes_exact_scan(rng):
     idx = IvfIndexBinary(x, nlist=8, n_bits=256, seed=0, fast_scan=True)
     assert not idx._fused_hamming_ok(300)
     assert not idx._fused_hamming_ok(129)
-    # small pools keep the fused path (when the layout is eligible at all)
-    if idx._fused_hamming_ok(10):
-        assert idx._fused_hamming_ok(128)
+    # small pools keep the fused path
+    assert idx._fused_hamming_ok(10)
+    assert idx._fused_hamming_ok(128)
     # and the big-pool query still works end-to-end through the XLA tier
     q = subsample_with_noise(x, 64, seed=9)
     i, d = idx.query(q, 15, nprobe=8, rerank="exact", rerank_factor=20,

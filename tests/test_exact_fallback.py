@@ -1,7 +1,7 @@
 """Small-regime exact query fallback (models/base.BRUTE_QUERY_FLOP_BUDGET).
 
 Below the FLOP budget, indexes that keep full-precision rows answer
-queries with one exact MXU scan — same economics inversion as the
+queries with one exact tensor-core scan — same economics inversion as the
 build-side brute path (VERDICT r1 endorsed it for builds). These tests
 run with the conftest's ANNSEARCH_NO_EXACT_FALLBACK temporarily lifted.
 """

@@ -1,7 +1,7 @@
 """f64 generics parity for the raw-row families (VERDICT r4 next-round #8).
 
 The reference's distance kernels and every index are generic over f32/f64
-(dist.rs:113-2263). The MXU has no f64 path, so f64 grade comes from a
+(dist.rs:113-2263). The tensor-core has no f64 path, so f64 grade comes from a
 widened device pre-selection + a host f64 rescore of the pool
 (``models/base.rescore_f64_pool``, shared via ``BaseIndex._f64_roundtrip``).
 These tests build each raw-row family from f64 data containing sub-f32-grain

@@ -1,5 +1,5 @@
 """Sharded CAGRA graph index on the virtual 8-device CPU mesh
-(BASELINE config 5: graph index sharded over a v5e-8 mesh)."""
+(BASELINE config 5: graph index sharded over a device mesh)."""
 
 import numpy as np
 import pytest

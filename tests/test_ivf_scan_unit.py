@@ -193,7 +193,7 @@ def test_scan_binary_asym_mode_matches_oracle():
         k, Dist.EUCLIDEAN, cap, "binary_asym",
     )
     # oracle: d = -<q, ±1 bits>, bf16 queries (kernel casts the float
-    # projections to bf16 for the MXU dot) — replicate the rounding
+    # projections to bf16 for the tensor cores dot) — replicate the rounding
     pm = np.where(xb[order], 1.0, -1.0).astype(np.float32)
     qf16 = qf.astype(jnp.bfloat16).astype(np.float32)
     od = -(qf16 @ pm.T)

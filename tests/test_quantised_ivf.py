@@ -129,16 +129,14 @@ def test_memory_compression(data):
     assert pq.memory_usage_bytes() < f32.memory_usage_bytes()
 
 
-def test_ivf_pq_qsplit_single_pass():
-    """q_split=False (single-bf16-pass query scoring on the approx fused
-    tier) must match the split path's recall where the ceiling is
-    quantisation — the 10M×128d operating point's knob (PROGRESS_NOTES
-    round-3 session 5: recall 0.9560 vs 0.9561 at np16 on hardware).
+def test_ivf_pq_qsplit_single_pass(fused_kernel):
+    """q_split=False (bf16 query scoring on the approx fused tier) must
+    match the f32-query path's recall where the ceiling is quantisation.
 
-    The knob only acts inside the FUSED kernel on i8dec modes, which
-    requires dim % 128 == 0 — a 128-d fixture (m=dim → i8dec) so the fused
-    approx tier genuinely runs (interpret mode off-TPU); asserted via
-    fused_eligible, not assumed."""
+    The knob only acts inside the FUSED kernel on i8dec modes — a 128-d
+    fixture (m=dim → i8dec) with the kernel forced on (the fused_kernel
+    fixture; interpreted on the CPU mesh); asserted via fused_eligible,
+    not assumed."""
     from annsearch_tpu.ops.ivf_scan_pallas import fused_eligible
 
     x, _ = generate_clustered_data(1500, 128, 8, seed=0)
@@ -157,50 +155,3 @@ def test_ivf_pq_qsplit_single_pass():
     assert r_one > r_split - 0.03
     np.testing.assert_array_equal(ai_auto, ai_one)
     assert (np.diff(ad_one, axis=1) >= -1e-5).all()
-
-
-def test_bf16_small_dim_fused_exact_tier(monkeypatch):
-    """Small-dim bf16 cells ride the fused exact tier (round-5: the
-    150k×32d ivf-bf16 row paid the per-cell XLA scan — 8× the reference
-    CPU). Lane-padded blocks + split-query scoring must return distances
-    that are f32-exact over the bf16 rows, at recall ≥ the XLA scan's."""
-    from annsearch_tpu.models.quantised.ivf import IvfIndexBf16
-    from annsearch_tpu.ops.ivf_scan_pallas import fused_eligible
-
-    monkeypatch.setenv("ANNSEARCH_FUSED_EXACT", "1")  # interpret off-TPU
-    x, _ = generate_clustered_data(4000, 32, 8, seed=3)
-    q = subsample_with_noise(x, 60, seed=3)
-    ti, _ = ExhaustiveIndex(x, "euclidean").query(q, 10)
-    index = IvfIndexBf16(x, "euclidean", nlist=16, seed=0)
-    assert fused_eligible(
-        "bf16", index.seg_size, int(index.storage.shape[1]), 10
-    ), "bf16 d=32 must be fused-eligible (lane padding) or this is vacuous"
-    ai, ad = index.query(q, 10, nprobe=8)
-    rows = index.vectors_original_order()
-    d_true = ((np.asarray(q)[:, None, :] - rows[ai]) ** 2).sum(-1)
-    np.testing.assert_allclose(ad, d_true, rtol=1e-5, atol=1e-5)
-    monkeypatch.setenv("ANNSEARCH_NO_PALLAS", "1")
-    xi, _ = index.query(q, 10, nprobe=8)
-    monkeypatch.delenv("ANNSEARCH_NO_PALLAS")
-    rec_fused = calculate_recall(ti, ai, 10)
-    rec_xla = calculate_recall(ti, xi, 10)
-    assert rec_fused >= rec_xla - 1e-9, (rec_fused, rec_xla)
-
-
-def test_sq8_small_dim_fused_exact_matches_xla(monkeypatch):
-    """sq8 at d=32 (previously fused-ineligible): the lane-padded fused
-    exact tier must reproduce the XLA scan's integer-space distances
-    bit-for-bit (int8 products are exact in bf16/f32)."""
-    from annsearch_tpu.models.quantised.ivf import IvfSq8Index
-
-    x, _ = generate_clustered_data(4000, 32, 8, seed=5)
-    q = subsample_with_noise(x, 60, seed=5)
-    index = IvfSq8Index(x, "euclidean", nlist=16, seed=0)
-    monkeypatch.setenv("ANNSEARCH_FUSED_EXACT", "1")
-    fi, fd = index.query(q, 10, nprobe=8)
-    monkeypatch.setenv("ANNSEARCH_NO_PALLAS", "1")
-    monkeypatch.delenv("ANNSEARCH_FUSED_EXACT")
-    xi, xd = index.query(q, 10, nprobe=8)
-    np.testing.assert_allclose(fd, xd, rtol=0, atol=1e-3)
-    agree = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(fi, xi)])
-    assert agree > 0.999, agree

@@ -42,7 +42,7 @@ def test_annoy_more_trees_better(tdata):
 
 
 @pytest.mark.parametrize("cls", [AnnoyIndex, KdTreeIndex])
-def test_forest_fused_scan_parity(tdata, monkeypatch, cls):
+def test_forest_fused_scan_parity(tdata, monkeypatch, fused_kernel, cls):
     """The fused forest query (multi-probe descent → per-tree cell scan →
     id dedup, one dispatch) must track the gather+rerank path at matched
     probes, and never return duplicate ids (cross-tree dedup)."""
@@ -89,7 +89,7 @@ def test_ball_tree_budget_sweep(tdata):
     assert calculate_recall(ti, hi, 10) >= calculate_recall(ti, lo, 10) - 0.02
 
 
-def test_ball_tree_fused_scan_parity(tdata, monkeypatch):
+def test_ball_tree_fused_scan_parity(tdata, monkeypatch, fused_kernel):
     """The fused cell-scan path (cells = 2-leaf segments of the sorted
     order, ranked by min leaf-centre distance) must track the leaf-precise
     rerank path; full-budget probing must be exact."""
@@ -218,7 +218,7 @@ def test_annoy_multiprobe_improves_recall(tdata):
     assert r4 > 0.85
 
 
-def test_lsh_fused_scan_matches_xla():
+def test_lsh_fused_scan_matches_xla(fused_kernel):
     """Bucket scans on the fused kernel (buckets ARE segments) must track
     the XLA engine."""
     import os
@@ -227,8 +227,7 @@ def test_lsh_fused_scan_matches_xla():
 
     x, q, ti, _ = _bigger_lsh_fixture()
     idx = LSHIndex(x, num_tables=4, bits_per_hash=6, seed=0)
-    if idx.seg_size % 128 != 0:
-        pytest.skip("layout not fused-eligible")
+    assert idx.seg_size % 128 == 0, "layout must be fused-eligible"
     i_f, d_f = idx.query(q, 10, n_probes=4, exact_fallback=False)
     os.environ["ANNSEARCH_NO_PALLAS"] = "1"
     try:

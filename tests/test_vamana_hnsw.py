@@ -130,7 +130,7 @@ def test_hnsw_base_layer_degree_bound(vdata):
 
 def test_nnd_vs_brute_agreement():
     """Above the brute budget the NND path must still converge; below it
-    the exact MXU path runs — both give high-recall graphs."""
+    the exact tensor-core path runs — both give high-recall graphs."""
     import os
 
     from annsearch_tpu.models.graph import NNDescentIndex
